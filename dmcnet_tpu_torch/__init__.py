@@ -6,9 +6,13 @@ never jax, flax or anything under `dmcnet_tpu` — and mirrors the JAX
 package's module names so every counterpart can be found:
 
   codec/          native MPEG-4 front-end (ctypes, libcoviar_torch.so), numpy
-                  golden model and synthetic GOPs, host accumulation
-  ops/backtrace   GOP back-trace: CUDA kernel (ops/csrc/backtrace_warp.cu)
-                  and its plain PyTorch version
+                  golden model and synthetic GOPs, GOP accumulation on a
+                  device and on the host, the `coviar` API, the re-encoder
+  ops/backtrace   GOP back-trace: CUDA kernels B1 and B2
+                  (ops/csrc/backtrace_warp.cu), their plain PyTorch
+                  versions, and `gop_mv_residual_cuda`
+  data/           lists, TSN sampling, the CoViAR dataset and its batches,
+                  crops and normalization on a device, the batch loader
   models/         DenseNet estimators, ResNet-18/34, DMCNet, weight bridge
   serving         DMCPredictor: compressed video in, action scores out
   cli/serve       batch / stdin scoring command

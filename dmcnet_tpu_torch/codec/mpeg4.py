@@ -88,6 +88,11 @@ def _lib():
         ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int32)]
+    lib.cv_accumulate_gop.restype = None
+    lib.cv_accumulate_gop.argtypes = [
+        ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32)]
     lib.cv_accumulate_gop_u8.restype = None
     lib.cv_accumulate_gop_u8.argtypes = [
         ctypes.POINTER(ctypes.c_int16), ctypes.POINTER(ctypes.c_uint8),
@@ -99,6 +104,10 @@ def _lib():
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
         ctypes.c_char_p]
+    lib.cv_transcode.restype = ctypes.c_int
+    lib.cv_transcode.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64]
     return lib
 
 

@@ -163,17 +163,27 @@ struct Decoder {
     if (ctx) avcodec_free_context(&ctx);
   }
 
-  // Convert a decoded frame to tightly packed BGR24 into `dst`.
+  // Convert a decoded frame to tightly packed BGR24 into `dst`.  swscale's
+  // vector paths write whole SIMD blocks, past the end of a row whose width
+  // is not a multiple of 16 pixels (heap corruption on such streams), so it
+  // writes into a padded scratch image whose rows are copied out.
   void to_bgr(const AVFrame* frame, uint8_t* dst) {
     sws = sws_getCachedContext(sws, frame->width, frame->height,
                                (AVPixelFormat)frame->format, frame->width,
                                frame->height, AV_PIX_FMT_BGR24, SWS_BICUBIC,
                                nullptr, nullptr, nullptr);
-    uint8_t* dst_data[4] = {dst, nullptr, nullptr, nullptr};
-    int dst_linesize[4] = {frame->width * 3, 0, 0, 0};
+    const size_t row = static_cast<size_t>(frame->width) * 3;
+    const size_t stride = (row + 63) & ~static_cast<size_t>(63);
+    scratch.resize(stride * (frame->height + 1));
+    uint8_t* dst_data[4] = {scratch.data(), nullptr, nullptr, nullptr};
+    int dst_linesize[4] = {static_cast<int>(stride), 0, 0, 0};
     sws_scale(sws, frame->data, frame->linesize, 0, frame->height, dst_data,
               dst_linesize);
+    for (int y = 0; y < frame->height; ++y)
+      std::memcpy(dst + y * row, scratch.data() + y * stride, row);
   }
+
+  std::vector<uint8_t> scratch;
 };
 
 }  // namespace

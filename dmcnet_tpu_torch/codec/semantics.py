@@ -113,3 +113,55 @@ def accumulate_gop_numpy(block_lists, height, width, pos_target):
                         accu_src[p_dst_y, p_dst_x] = accu_src_old[p_src_y, p_src_x]
         accu_src_old = accu_src.copy()
     return accu_src
+
+
+def load_like_coviar_numpy(block_lists, frames_bgr, pos_target, representation,
+                           accumulate):
+    """NumPy model of the reference `coviar.load` return value.
+
+    Args:
+      block_lists: per-frame MV block lists for one GOP (index 0 = I-frame).
+      frames_bgr: (T, H, W, 3) uint8 decoded frames of the GOP.
+      pos_target: frame position within the GOP.
+      representation: 'iframe' | 'mv' | 'residual'.
+      accumulate: bool, accumulate mode.
+
+    Returns the same array the C extension would: iframe (H, W, 3) uint8 BGR,
+    mv (H, W, 2) int32, or residual (H, W, 3) int32 (c:289-314, c:556-574).
+    """
+    frames_bgr = np.asarray(frames_bgr)
+    _, height, width, _ = frames_bgr.shape
+
+    if representation == "iframe":
+        return frames_bgr[pos_target].copy()
+
+    if pos_target == 0:
+        # The reference's `cur_pos > 0` guard (c:128) leaves the zero-inited
+        # arrays untouched for the I-frame position.
+        shape = (height, width, 2) if representation == "mv" else (height, width, 3)
+        return np.zeros(shape, dtype=np.int32)
+
+    if representation == "mv":
+        if accumulate:
+            accu_src = accumulate_gop_numpy(block_lists, height, width, pos_target)
+            return _identity_src(height, width) - accu_src
+        return rasterize_blocks(block_lists[pos_target], height, width)
+
+    if representation != "residual":
+        raise ValueError(f"unknown representation {representation!r}")
+    target = frames_bgr[pos_target].astype(np.int32)
+    if accumulate:
+        accu_src = accumulate_gop_numpy(block_lists, height, width, pos_target)
+        base = frames_bgr[0].astype(np.int32)
+        src_x = accu_src[..., 0]
+        src_y = accu_src[..., 1]
+    else:
+        mv_map = rasterize_blocks(block_lists[pos_target], height, width)
+        base = frames_bgr[pos_target - 1].astype(np.int32)
+        xs, ys = np.meshgrid(np.arange(width), np.arange(height))
+        src_x = xs - mv_map[..., 0]
+        src_y = ys - mv_map[..., 1]
+    # Rasterization guarantees in-bounds sources; clip anyway to stay total.
+    src_x = np.clip(src_x, 0, width - 1)
+    src_y = np.clip(src_y, 0, height - 1)
+    return target - base[src_y, src_x]

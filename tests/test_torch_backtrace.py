@@ -1,14 +1,16 @@
 """The port's GOP back-trace (dmcnet_tpu_torch/ops/backtrace.py) against the
-JAX package: the plain PyTorch version is bit-equal to the exact XLA twin
-and to the Pallas kernel (interpret mode), the cell-grid builder matches,
-and on a card the CUDA kernel is bit-equal to the plain version."""
+JAX package: the plain PyTorch versions of B1 (`backtrace_warp_batch`) and
+B2 (`backtrace_gop_cells`) are bit-equal to the exact XLA twin, to the
+Pallas kernels (interpret mode) and to the numpy golden model, the
+cell-grid builders match with their acceptance flags, and on a card the
+CUDA kernels are bit-equal to the plain versions."""
 
 import numpy as np
 import pytest
 import torch
 
 from dmcnet_tpu.codec.semantics import accumulate_gop_numpy
-from dmcnet_tpu.codec.synthetic import synthetic_gop
+from dmcnet_tpu.codec.synthetic import dense_mv_maps, synthetic_gop
 from dmcnet_tpu.ops import pallas_backtrace as pb
 from dmcnet_tpu_torch.codec import semantics as tsem
 from dmcnet_tpu_torch.codec import synthetic as tsyn
@@ -143,6 +145,152 @@ def test_wrapper_on_cpu_runs_plain_version_and_checks_args():
     with pytest.raises(ValueError):
         tb.backtrace_warp_batch(torch.from_numpy(cm), torch.from_numpy(ifr),
                                 32, 48, 8)
+
+
+def _gop_cells_with_border(rng, t, h, w, cell):
+    """One GOP's cells: random motion up to max_mv(cell) in the first
+    frames, then a frame where every cell moves by +-max_mv(cell), so the
+    sources of the cells nearest each edge fall outside the frame."""
+    cm, _ = _random_cells(rng, 1, t, h, w, cell)
+    border, _ = _border_cells(1, t, h, w, cell)
+    cm[0, t - 1] = border[0, 1]
+    return cm[0]
+
+
+@pytest.mark.parametrize("cell", [8, 16])
+def test_gop_cells_ref_matches_pallas_kernel_interpret(cell):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    cm = _gop_cells_with_border(np.random.default_rng(cell), 4, 32, 32, cell)
+    with pltpu.force_tpu_interpret_mode():
+        want = pb.backtrace_gop_cells(jnp.asarray(cm), 32, 32, cell=cell)
+    got = tb.backtrace_gop_cells_ref(torch.from_numpy(cm), 32, 32, cell)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("cell", [8, 16])
+def test_gop_cells_ref_is_b1_without_the_warp(cell):
+    g, t, h, w = 2, 5, 64, 96
+    cm, ifr = _random_cells(np.random.default_rng(20 + cell), g, t, h, w,
+                            cell)
+    cm[1] = _gop_cells_with_border(np.random.default_rng(cell), t, h, w,
+                                   cell)
+    accu, _ = tb.backtrace_warp_batch_ref(torch.from_numpy(cm),
+                                          torch.from_numpy(ifr), h, w, cell)
+    for gi in range(g):
+        got = tb.backtrace_gop_cells(torch.from_numpy(cm[gi]), h, w, cell)
+        assert torch.equal(got, accu[gi])
+
+
+@pytest.mark.parametrize("block", [8, 16])
+def test_gop_cells_ref_matches_golden(block):
+    """Dense rasterized maps -> cell grid (coarsened where 16x16-uniform)
+    -> plain B2 == accumulate_gop_numpy, with strong motion at the edges."""
+    rng = np.random.default_rng(30 + block)
+    h, w, t = 48, 64, 5
+    block_lists, _ = tsyn.synthetic_gop(rng, num_frames=t, height=h,
+                                        width=w, block_size=block,
+                                        max_motion=20)
+    dense = tsyn.dense_mv_maps(block_lists, h, w)
+    cm, ok = tb.cell_mv_from_dense(dense)
+    assert ok
+    coarse, ok16 = tb.coarsen_cell_mv(cm, h, w)
+    assert ok16 == (block == 16)
+    cells, cell = (coarse, 16) if ok16 else (cm, 8)
+    accu = tb.accu_to_hwc(tb.backtrace_gop_cells_ref(
+        torch.from_numpy(cells), h, w, cell)).numpy()
+    for s in range(t):
+        np.testing.assert_array_equal(
+            accu[s], tsem.accumulate_gop_numpy(block_lists, h, w, s))
+
+
+def _dense_cases():
+    """(name, dense maps) covering every acceptance outcome: 16x16-uniform,
+    8x8-uniform, mixed within a cell, motion beyond max_mv, a static 8x8
+    sub-cell inside a moving 16x16 group, and a fully clipped one."""
+    rng = np.random.default_rng(40)
+    h, w = 64, 96
+    cases = []
+    for block in (16, 8, 4):
+        bl, _ = synthetic_gop(rng, num_frames=4, height=h, width=w,
+                              block_size=block, max_motion=12)
+        cases.append((f"block{block}", dense_mv_maps(bl, h, w)))
+    big = np.zeros((3, h, w, 2), np.int32)
+    big[1, 16:32, 16:32] = (57, 0)
+    cases.append(("beyond_max_mv8", big))
+    big16 = np.zeros((3, h, w, 2), np.int32)
+    big16[1, 16:32, 16:32] = (50, 0)
+    cases.append(("beyond_max_mv16", big16))
+    static = np.zeros((3, h, w, 2), np.int32)
+    static[1, 16:32, 16:32] = (3, -2)
+    static[1, 16:24, 16:24] = 0
+    cases.append(("static_subcell", static))
+    clipped = np.zeros((3, h, w, 2), np.int32)
+    clipped[1, 8:16, 0:8] = (0, 0)
+    clipped[1, 0:16, 8:16] = (9, 0)
+    clipped[1, 0:8, 0:8] = (9, 0)
+    cases.append(("clipped_subcell", clipped))
+    return cases
+
+
+def test_cells_from_dense_and_coarsen_match_jax_package():
+    for name, dense in _dense_cases():
+        want, ok = pb.cell_mv_from_dense(dense)
+        got, tok = tb.cell_mv_from_dense(dense)
+        assert tok == ok, name
+        np.testing.assert_array_equal(got, want)
+        h, w = dense.shape[1:3]
+        want16, ok16 = pb.coarsen_cell_mv(want, h, w)
+        got16, tok16 = tb.coarsen_cell_mv(got, h, w)
+        assert tok16 == ok16, name
+        np.testing.assert_array_equal(got16, want16)
+    outcomes = {name: (tb.cell_mv_from_dense(d)[1],
+                       tb.coarsen_cell_mv(tb.cell_mv_from_dense(d)[0],
+                                          *d.shape[1:3])[1])
+                for name, d in _dense_cases()}
+    assert outcomes["block16"] == (True, True)
+    assert outcomes["block8"] == (True, False)
+    assert not outcomes["block4"][0]
+    assert not outcomes["beyond_max_mv8"][0]
+    assert outcomes["beyond_max_mv16"] == (True, False)
+    assert outcomes["static_subcell"] == (True, False)
+    assert outcomes["clipped_subcell"] == (True, True)
+    with pytest.raises(ValueError):
+        tb.cell_mv_from_dense(np.zeros((2, 20, 24, 2), np.int32))
+
+
+def test_gop_wrapper_on_cpu_runs_plain_version_and_checks_args():
+    cm = _gop_cells_with_border(np.random.default_rng(3), 3, 32, 48, 16)
+    before = tb.backtrace_gop_cells.launches
+    got = tb.backtrace_gop_cells(torch.from_numpy(cm), 32, 48, 16)
+    assert torch.equal(got, tb.backtrace_gop_cells_ref(torch.from_numpy(cm),
+                                                       32, 48, 16))
+    assert tb.backtrace_gop_cells.launches == before
+    with pytest.raises(TypeError):
+        tb.backtrace_gop_cells(torch.from_numpy(cm).long(), 32, 48, 16)
+    with pytest.raises(ValueError):
+        tb.backtrace_gop_cells(torch.from_numpy(cm), 32, 48, 8)
+    with pytest.raises(ValueError):
+        tb.backtrace_gop_cells(torch.from_numpy(cm)[None], 32, 48, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", [8, 16])
+def test_cuda_gop_kernel_matches_plain_version_and_b1(cell):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    t, h, w = 12, 256, 320
+    cm = _gop_cells_with_border(np.random.default_rng(cell), t, h, w, cell)
+    cm_d = torch.from_numpy(cm).cuda()
+    before = tb.backtrace_gop_cells.launches
+    accu = tb.backtrace_gop_cells(cm_d, h, w, cell)
+    torch.cuda.synchronize()
+    assert tb.backtrace_gop_cells.launches == before + 1
+    assert torch.equal(accu, tb.backtrace_gop_cells_ref(cm_d, h, w, cell))
+    ifr = torch.zeros((3, h, w), dtype=torch.int32, device="cuda")
+    b1, _ = tb.backtrace_warp_gop_cells(cm_d, ifr, h, w, cell)
+    assert torch.equal(accu, b1)
 
 
 @pytest.mark.cuda
