@@ -16,18 +16,22 @@ segments, mv, mv_minmaxnorm, input 224) through to logits.  Phases:
   2. build       nvcc of ops/csrc/backtrace_warp.cu, with ptxas' report
   3. kernel      B1 backtrace_warp_batch vs backtrace_warp_batch_ref on the
                  card, bit-equal: G=8, T=12, 256x320 at cell 16 and 8,
-                 border motion at max_mv, and a small GOP vs the numpy
-                 golden model
+                 border motion at max_mv, the ragged shapes of
+                 bench_backtrace.RAGGED (W 72-112, H 8-48, T 1, 2, 13),
+                 G*T = 65544 past the first design's grid limit, and a
+                 small GOP vs the numpy golden model
   4. gop kernel  B2 backtrace_gop_cells vs backtrace_gop_cells_ref and vs
                  B1's accu, bit-equal: synthetic 256x320, T=12 GOPs at cell
-                 16 and 8, border motion at max_mv, a small GOP vs the
-                 golden model; B2's own time, its plain version's and its
-                 bound
+                 16 and 8, border motion at max_mv, the ragged shapes, a
+                 small GOP vs the golden model; B2's own device time beside
+                 the launch floor (a 1-element zero_() in the same queue),
+                 its plain version's time and its bound
   5. main path   DMCPredictor._pack_rows -> _gop_program on the card;
                  launch counts read around the run; u8 outputs equal to the
                  same program with the plain back-trace; logits vs a CPU
-                 run of the port; chunk time and clips/s; B1's own time,
-                 its plain version's time and its bound
+                 run of the port; chunk time and clips/s; B1's own device
+                 time (queued launches), its plain version's time and its
+                 bound
   6. codec       gop_mv_residual_cuda on 256x320, T=12 GOPs equal to the
                  plain codec.accumulate.gop_mv_residual on the card and to
                  the golden load_like_coviar_numpy; the cell-16, cell-8 and
@@ -65,9 +69,12 @@ HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer lane rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (half the
 # FP32 lanes behind the 67 TFLOP/s FP32 figure, which counts an FMA as 2).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Integer operations of one back-trace step of one pixel in
-# ops/csrc/backtrace_warp.cu: 2 shifts + 1 multiply-add for the cell
-# index, 2 subtracts, 4 bound compares, 2 selects, the loop compare.
+# Integer operations of one back-trace step of one pixel: 2 shifts + 1
+# multiply-add for the cell index, 2 subtracts, 4 bound compares, 2
+# selects, the loop compare.  The kernel of ops/csrc/backtrace_warp.cu
+# issues more, not fewer: its unrolled walk loop (2 steps x 4 pixels) holds
+# 102 vector integer instructions besides the 8 loads and the branch, 12.75
+# per pixel-step (cuobjdump -sass, ops/bench_backtrace.py), so 12 stays.
 OPS_PER_STEP = 12
 
 G, T, H, W, CELL, PICKS = 64, 12, 256, 320, 16, 3
@@ -108,24 +115,6 @@ def median_ms(fn, n, torch):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
-
-
-def device_ms_per_call(fn, n, torch):
-    """Device time of one fn() call, from CUDA events around `n` calls
-    queued behind a ~20 ms device sleep: the host enqueues every call
-    before the first runs, so the window holds device work only and not
-    the wrapper's host overhead."""
-    fn()
-    torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(40_000_000)
-    e0.record()
-    for _ in range(n):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / n
 
 
 def host_ms(fn, n, torch):
@@ -179,6 +168,7 @@ def gop_kernel_phase(torch, bt, dev, rng):
     codec and data phases) and B2's numbers."""
     from dmcnet_tpu_torch.codec.semantics import accumulate_gop_numpy
     from dmcnet_tpu_torch.codec.synthetic import dense_mv_maps, synthetic_gop
+    from dmcnet_tpu_torch.ops.bench_backtrace import RAGGED, device_ms
 
     phase("gop kernel")
     t0 = time.perf_counter()
@@ -192,7 +182,7 @@ def gop_kernel_phase(torch, bt, dev, rng):
           f"{time.perf_counter() - t0:.2f} s")
     b2_err = 0
 
-    def compare_gop(cells, cell, label):
+    def compare_gop(cells, cell, label, quiet=False):
         nonlocal b2_err
         cm_d = torch.as_tensor(np.ascontiguousarray(cells, np.int32),
                                device=dev)
@@ -205,8 +195,9 @@ def gop_kernel_phase(torch, bt, dev, rng):
             w, cell)
         err = int((accu - ref).abs().max())
         b2_err = max(b2_err, err)
-        print(f"  {label}: max |B2 - plain| = {err}, B2 == B1 accu: "
-              f"{torch.equal(accu, b1)}")
+        if not quiet:
+            print(f"  {label}: max |B2 - plain| = {err}, B2 == B1 accu: "
+                  f"{torch.equal(accu, b1)}")
         check(err == 0, f"B2 != plain version ({label})")
         check(torch.equal(accu, b1), f"B2 != B1's accu ({label})")
         return cm_d, accu
@@ -227,6 +218,13 @@ def gop_kernel_phase(torch, bt, dev, rng):
         border[1::2] = m      # odd frames push sources off the top/left
         border[2::2] = -m     # even frames off the bottom/right
         compare_gop(border, cell, f"border |mv| = max_mv({cell}) = {m}")
+    for cell, h, w, t in RAGGED:
+        m = bt.max_mv(cell)
+        compare_gop(rng.integers(-m, m + 1, size=(t, h // cell, w // cell,
+                                                  2)),
+                    cell, f"ragged T={t} {h}x{w} cell {cell}", quiet=True)
+    print(f"  {len(RAGGED)} ragged shapes (W 72-112, H 8-48, T 1/2/13, "
+          f"cell 8 and 16): max |B2 - plain| = {b2_err}, B2 == B1 accu")
     block_lists, _ = synthetic_gop(rng, num_frames=6, height=64, width=96,
                                    max_motion=20)
     small = dense_mv_maps(block_lists, 64, 96)
@@ -240,8 +238,10 @@ def gop_kernel_phase(torch, bt, dev, rng):
                                                            96, s)),
               f"B2 accu != golden at frame {s}")
     print("  small GOP: accu equals the golden model")
-    b2_ms = device_ms_per_call(
-        lambda: bt.backtrace_gop_cells(b2_inputs, H, W, 16), 100, torch)
+    b2_ms = device_ms(
+        lambda: bt.backtrace_gop_cells(b2_inputs, H, W, 16), 100)
+    one = torch.empty(1, device=dev)
+    floor_ms = device_ms(lambda: one.zero_(), 100)
     b2_wrapper_ms = host_ms(
         lambda: bt.backtrace_gop_cells(b2_inputs, H, W, 16), 50, torch)
     b2_plain_ms = median_ms(
@@ -251,6 +251,8 @@ def gop_kernel_phase(torch, bt, dev, rng):
     b2_bytes_ms = b2_bytes / HBM_BYTES_PER_S * 1e3
     b2_ops_ms = b2_ops / INT32_OPS_PER_S * 1e3
     b2_bound_ms = max(b2_bytes_ms, b2_ops_ms)
+    print(f"  launch floor: a 1-element zero_() {floor_ms:.5f} ms per call "
+          "(device, 100 queued launches)")
     print(f"  backtrace_gop_cells at T={T} {H}x{W} cell 16: kernel "
           f"{b2_ms:.5f} ms (device, 100 queued launches), wrapper call "
           f"{b2_wrapper_ms:.4f} ms (host clock), plain {b2_plain_ms:.3f} "
@@ -258,6 +260,7 @@ def gop_kernel_phase(torch, bt, dev, rng):
           f"-> {b2_bytes_ms:.5f} ms; int32 ops {b2_ops / 1e6:.1f} M -> "
           f"{b2_ops_ms:.5f} ms); {b2_bound_ms / b2_ms * 100:.1f}% of bound")
     return {"gops": gops, "max_err": b2_err, "ms": b2_ms,
+            "floor_ms": floor_ms,
             "wrapper_ms": b2_wrapper_ms, "plain_ms": b2_plain_ms,
             "bound_ms": b2_bound_ms,
             "bound_by": "bytes" if b2_bytes_ms >= b2_ops_ms else "operations"}
@@ -468,6 +471,7 @@ def main():
     from dmcnet_tpu_torch.data.transforms import IMAGENET_STD, MEAN_STD
     from dmcnet_tpu_torch.ops import _build
     from dmcnet_tpu_torch.ops import backtrace as bt
+    from dmcnet_tpu_torch.ops.bench_backtrace import RAGGED, device_ms
     from dmcnet_tpu_torch.serving import DMCPredictor
 
     # 1. device ------------------------------------------------------------
@@ -500,7 +504,7 @@ def main():
     rng = np.random.default_rng(0)
     max_err = 0
 
-    def compare(cm, ifr, h, w, cell, label):
+    def compare(cm, ifr, h, w, cell, label, quiet=False):
         nonlocal max_err
         if isinstance(cm, np.ndarray):
             cm = np.ascontiguousarray(cm, np.int32)
@@ -512,7 +516,8 @@ def main():
         ra, rw = bt.backtrace_warp_batch_ref(cm_d, ifr_d, h, w, cell)
         err = max(int((accu - ra).abs().max()), int((warped - rw).abs().max()))
         max_err = max(max_err, err)
-        print(f"  {label}: max |kernel - plain| = {err}")
+        if not quiet:
+            print(f"  {label}: max |kernel - plain| = {err}")
         check(err == 0, f"kernel != plain version ({label})")
         return accu, warped
 
@@ -526,6 +531,18 @@ def main():
         border[:, 2::2] = -m     # even frames off the bottom/right
         compare(border, ifr[:2], H, W, cell,
                 f"border |mv| = max_mv({cell}) = {m}")
+    for cell, h, w, t in RAGGED:
+        m = bt.max_mv(cell)
+        compare(rng.integers(-m, m + 1, size=(3, t, h // cell, w // cell, 2)),
+                rng.integers(0, 256, size=(3, 3, h, w)), h, w, cell,
+                f"ragged G=3 T={t} {h}x{w} cell {cell}", quiet=True)
+    print(f"  {len(RAGGED)} ragged shapes (W 72-112, H 8-48, T 1/2/13, "
+          f"cell 8 and 16): max |kernel - plain| = {max_err}")
+    # past the G*T <= 65535 grid limit of the first design
+    big_g = 65535 // T + 1
+    compare(rng.integers(-7, 8, size=(big_g, T, 1, 1, 2)),
+            rng.integers(0, 256, size=(big_g, 3, 8, 8)), 8, 8, 8,
+            f"G={big_g} T={T} (G*T = {big_g * T}) 8x8 cell 8")
     block_lists, frames = synthetic_gop(rng, num_frames=6, height=64,
                                         width=96, max_motion=20)
     blocks, n_blocks = block_arrays(block_lists)
@@ -661,8 +678,15 @@ def main():
     ifr_d = if_d.permute(0, 3, 1, 2).to(torch.int32).contiguous()
     compare(cm_d, ifr_d, H, W, CELL, f"main-path inputs G={G} T={T} "
             f"{H}x{W} cell {CELL}")
-    kernel_ms = median_ms(
+    # the first design's times were read with median_ms, whose window
+    # holds the wrapper's host work; the kernel's time is device time over
+    # queued launches
+    kernel_median_ms = median_ms(
         lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20, torch)
+    print(f"  backtrace_warp_batch by the earlier method (median of 20 "
+          f"event-timed calls, host work inside): {kernel_median_ms:.4f} ms")
+    kernel_ms = device_ms(
+        lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20)
     plain_ms = median_ms(
         lambda: bt.backtrace_warp_batch_ref(cm_d, ifr_d, H, W, CELL), 5,
         torch)
@@ -672,7 +696,8 @@ def main():
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     print(f"  backtrace_warp_batch at G={G} T={T} {H}x{W} cell {CELL}: "
-          f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.3f} ms; bound "
+          f"kernel {kernel_ms:.4f} ms (device, 20 queued launches), plain "
+          f"{plain_ms:.3f} ms; bound "
           f"{bound_ms:.4f} ms (bytes {n_bytes / 1e9:.3f} GB -> "
           f"{bytes_ms:.4f} ms; int32 ops {n_ops / 1e9:.2f} G -> "
           f"{ops_ms:.4f} ms); {bound_ms / kernel_ms * 100:.1f}% of bound")
@@ -726,7 +751,7 @@ def main():
         "name": "backtrace_warp_batch",
         "route": "cuda",
         "source": "dmcnet_tpu_torch/ops/csrc/backtrace_warp.cu",
-        "replaces": "dmcnet_tpu/ops/pallas_backtrace.py:400",
+        "replaces": "dmcnet_tpu/ops/pallas_backtrace.py:401",
         "launches": launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
@@ -738,7 +763,7 @@ def main():
         "name": "backtrace_gop_cells",
         "route": "cuda",
         "source": "dmcnet_tpu_torch/ops/csrc/backtrace_warp.cu",
-        "replaces": "dmcnet_tpu/ops/pallas_backtrace.py:370",
+        "replaces": "dmcnet_tpu/ops/pallas_backtrace.py:371",
         "launches": data["b2_launches"],
         "max_abs_err": b2["max_err"],
         "ms": b2["ms"],
@@ -751,7 +776,9 @@ def main():
     print(json.dumps({"chunk_ms": chunk_ms, "chunk_ms_tf32": chunk_ms_tf32,
                       "stages_ms": stages, "clips_per_chunk": clips,
                       "clips_per_s": clips / chunk_ms * 1e3,
+                      "b1_median_ms": kernel_median_ms,
                       "b2_wrapper_ms": b2["wrapper_ms"],
+                      "launch_floor_ms": b2["floor_ms"],
                       "codec_ms": codec_times,
                       "data_ms": data["times"], "card": smi}))
     print(smi)

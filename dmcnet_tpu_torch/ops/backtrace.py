@@ -303,9 +303,6 @@ def backtrace_warp_batch(cell_mv, iframes, height, width, cell=CELL):
     _check_args(cell_mv, iframes, height, width, cell)
     _check_launchable("backtrace_warp_batch", cell_mv, iframes)
     g, t = cell_mv.shape[:2]
-    if g * t > 65535:
-        raise ValueError(f"G*T = {g * t} exceeds the kernel's grid limit "
-                         "(65535); split the batch")
     lib = load("backtrace_warp", _declare)
     accu = torch.empty((g, t, 2, height, width), dtype=torch.int32,
                        device=cell_mv.device)
@@ -355,8 +352,6 @@ def backtrace_gop_cells(cell_mv, height, width, cell=CELL):
     _check_cells(cell_mv, "T", height, width, cell)
     _check_launchable("backtrace_gop_cells", cell_mv)
     t = cell_mv.shape[0]
-    if t > 65535:
-        raise ValueError(f"T = {t} exceeds the kernel's grid limit (65535)")
     lib = load("backtrace_warp", _declare)
     accu = torch.empty((t, 2, height, width), dtype=torch.int32,
                        device=cell_mv.device)

@@ -15,6 +15,7 @@ from dmcnet_tpu.ops import pallas_backtrace as pb
 from dmcnet_tpu_torch.codec import semantics as tsem
 from dmcnet_tpu_torch.codec import synthetic as tsyn
 from dmcnet_tpu_torch.ops import backtrace as tb
+from dmcnet_tpu_torch.ops.bench_backtrace import RAGGED
 
 
 def _random_cells(rng, g, t, h, w, cell, bound=None):
@@ -306,5 +307,80 @@ def test_cuda_kernel_matches_plain_version(cell):
     torch.cuda.synchronize()
     assert tb.backtrace_warp_batch.launches == before + 1
     ra, rw = tb.backtrace_warp_batch_ref(cm_d, ifr_d, h, w, cell)
+    assert torch.equal(accu, ra)
+    assert torch.equal(warped, rw)
+
+
+# Widths whose rows do not fill a block's run of pixels, heights of one and
+# three cell rows, and T of one frame, one pair and an odd count (the
+# middle frame walks alone), at cell 8 and 16.
+RAGGED_IDS = [f"c{c}-{h}x{w}-T{t}" for c, h, w, t in RAGGED]
+
+
+@pytest.mark.parametrize("cell,h,w,t", RAGGED, ids=RAGGED_IDS)
+def test_ragged_refs_match_xla_twin(cell, h, w, t):
+    cm, ifr = _random_cells(np.random.default_rng(h * w + t), 2, t, h, w,
+                            cell)
+    accu_x, warp_x = pb.backtrace_warp_batch_xla(cm, ifr, h, w, cell=cell)
+    accu_t, warp_t = tb.backtrace_warp_batch_ref(
+        torch.from_numpy(cm), torch.from_numpy(ifr), h, w, cell)
+    np.testing.assert_array_equal(accu_t.numpy(), np.asarray(accu_x))
+    np.testing.assert_array_equal(warp_t.numpy(), np.asarray(warp_x))
+    got = tb.backtrace_gop_cells_ref(torch.from_numpy(cm[1]), h, w, cell)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(accu_x)[1])
+
+
+@pytest.mark.parametrize("cell,h,w", [(8, 8, 72), (16, 16, 80)])
+@pytest.mark.parametrize("t", [1, 2, 13])
+def test_ragged_refs_match_pallas_kernels_interpret(cell, h, w, t):
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    cm, ifr = _random_cells(np.random.default_rng(t), 1, t, h, w, cell)
+    with pltpu.force_tpu_interpret_mode():
+        accu_k, warp_k = pb.backtrace_warp_batch(cm, ifr, h, w, cell=cell)
+        gop_k = pb.backtrace_gop_cells(jnp.asarray(cm[0]), h, w, cell=cell)
+    accu_t, warp_t = tb.backtrace_warp_batch_ref(
+        torch.from_numpy(cm), torch.from_numpy(ifr), h, w, cell)
+    np.testing.assert_array_equal(accu_t.numpy(), np.asarray(accu_k))
+    np.testing.assert_array_equal(warp_t.numpy(), np.asarray(warp_k))
+    got = tb.backtrace_gop_cells_ref(torch.from_numpy(cm[0]), h, w, cell)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(gop_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell,h,w,t", RAGGED, ids=RAGGED_IDS)
+def test_cuda_ragged_kernels_match_plain_versions(cell, h, w, t):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    cm, ifr = _random_cells(np.random.default_rng(h * w + t), 3, t, h, w,
+                            cell)
+    cm_d, ifr_d = torch.from_numpy(cm).cuda(), torch.from_numpy(ifr).cuda()
+    accu, warped = tb.backtrace_warp_batch(cm_d, ifr_d, h, w, cell)
+    gop = tb.backtrace_gop_cells(cm_d[1].contiguous(), h, w, cell)
+    torch.cuda.synchronize()
+    ra, rw = tb.backtrace_warp_batch_ref(cm_d, ifr_d, h, w, cell)
+    assert torch.equal(accu, ra)
+    assert torch.equal(warped, rw)
+    assert torch.equal(gop, ra[1])
+    assert torch.equal(gop, tb.backtrace_gop_cells_ref(cm_d[1], h, w, cell))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_past_the_first_designs_grid_limit():
+    """The first design put G*T on the grid's z axis (at most 65535); the
+    flat grid has no such limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    t = 12
+    g = 65535 // t + 1
+    rng = np.random.default_rng(9)
+    cm = rng.integers(-7, 8, size=(g, t, 1, 1, 2)).astype(np.int32)
+    ifr = rng.integers(0, 256, size=(g, 3, 8, 8)).astype(np.int32)
+    cm_d, ifr_d = torch.from_numpy(cm).cuda(), torch.from_numpy(ifr).cuda()
+    accu, warped = tb.backtrace_warp_batch(cm_d, ifr_d, 8, 8, 8)
+    torch.cuda.synchronize()
+    ra, rw = tb.backtrace_warp_batch_ref(cm_d, ifr_d, 8, 8, 8)
+    assert g * t > 65535
     assert torch.equal(accu, ra)
     assert torch.equal(warped, rw)
