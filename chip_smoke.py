@@ -16,8 +16,8 @@ segments, mv, mv_minmaxnorm, input 224) through to logits.  Phases:
   2. build       nvcc of ops/csrc/backtrace_warp.cu, with ptxas' report
   3. kernel      B1 backtrace_warp_batch vs backtrace_warp_batch_ref on the
                  card, bit-equal: G=8, T=12, 256x320 at cell 16 and 8,
-                 border motion at max_mv, the ragged shapes of
-                 bench_backtrace.RAGGED (W 72-112, H 8-48, T 1, 2, 13),
+                 border motion at max_mv, the ragged shapes of RAGGED
+                 (W 72-112, H 8-48, T 1, 2, 13),
                  G*T = 65544 past the first design's grid limit, and a
                  small GOP vs the numpy golden model
   4. gop kernel  B2 backtrace_gop_cells vs backtrace_gop_cells_ref and vs
@@ -69,13 +69,15 @@ HBM_BYTES_PER_S = 3.35e12
 # 32-bit integer lane rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (half the
 # FP32 lanes behind the 67 TFLOP/s FP32 figure, which counts an FMA as 2).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# Integer operations of one back-trace step of one pixel: 2 shifts + 1
+# Integer operations of one back-trace step of one pixel, as the kernel of
+# ops/csrc/backtrace_warp.cu issues them: its unrolled walk loop (2 steps x
+# 4 pixels) holds 94 vector integer instructions besides the 8 loads and
+# the branch (cuobjdump -sass of the library nvcc 12.8 builds, written by
+# tools/bench_torch_backtrace.py; its 20 uniform-datapath instructions run
+# once per warp, not per lane).  A plain count gives 12: 2 shifts + 1
 # multiply-add for the cell index, 2 subtracts, 4 bound compares, 2
-# selects, the loop compare.  The kernel of ops/csrc/backtrace_warp.cu
-# issues more, not fewer: its unrolled walk loop (2 steps x 4 pixels) holds
-# 102 vector integer instructions besides the 8 loads and the branch, 12.75
-# per pixel-step (cuobjdump -sass, ops/bench_backtrace.py), so 12 stays.
-OPS_PER_STEP = 12
+# selects, the loop compare.
+OPS_PER_STEP = 94 / 8
 
 G, T, H, W, CELL, PICKS = 64, 12, 256, 320, 16, 3
 SIZE, NUM_CLASS = 224, 51
@@ -87,6 +89,13 @@ BATCH, SEGMENTS, MINMAX_BOUND = 40, 3, 20
 # Card vs CPU crops after normalization: float32, TF32 off; the resampling
 # products are summed in different orders.
 NORM_ATOL = 5e-5
+# (cell, H, W, T) the kernels must mask: widths whose rows do not fill a
+# block's run of pixels, one and three cell rows, and T of one frame, one
+# pair and an odd count (the middle frame walks alone).
+RAGGED = [(8, h, w, t) for w in (72, 88, 96) for h in (8, 24)
+          for t in (1, 2, 13)] + \
+         [(16, h, w, t) for w in (80, 96, 112) for h in (16, 48)
+          for t in (1, 2, 13)]
 
 
 class SmokeFailure(RuntimeError):
@@ -115,6 +124,24 @@ def median_ms(fn, n, torch):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def device_ms_per_call(fn, n, torch):
+    """Device time of one fn() call, from CUDA events around `n` calls
+    queued behind a ~20 ms device sleep: the host enqueues every call
+    before the first runs, so the window holds device work only and not
+    the wrapper's host overhead."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
 
 
 def host_ms(fn, n, torch):
@@ -168,7 +195,6 @@ def gop_kernel_phase(torch, bt, dev, rng):
     codec and data phases) and B2's numbers."""
     from dmcnet_tpu_torch.codec.semantics import accumulate_gop_numpy
     from dmcnet_tpu_torch.codec.synthetic import dense_mv_maps, synthetic_gop
-    from dmcnet_tpu_torch.ops.bench_backtrace import RAGGED, device_ms
 
     phase("gop kernel")
     t0 = time.perf_counter()
@@ -238,10 +264,10 @@ def gop_kernel_phase(torch, bt, dev, rng):
                                                            96, s)),
               f"B2 accu != golden at frame {s}")
     print("  small GOP: accu equals the golden model")
-    b2_ms = device_ms(
-        lambda: bt.backtrace_gop_cells(b2_inputs, H, W, 16), 100)
+    b2_ms = device_ms_per_call(
+        lambda: bt.backtrace_gop_cells(b2_inputs, H, W, 16), 100, torch)
     one = torch.empty(1, device=dev)
-    floor_ms = device_ms(lambda: one.zero_(), 100)
+    floor_ms = device_ms_per_call(lambda: one.zero_(), 100, torch)
     b2_wrapper_ms = host_ms(
         lambda: bt.backtrace_gop_cells(b2_inputs, H, W, 16), 50, torch)
     b2_plain_ms = median_ms(
@@ -471,7 +497,6 @@ def main():
     from dmcnet_tpu_torch.data.transforms import IMAGENET_STD, MEAN_STD
     from dmcnet_tpu_torch.ops import _build
     from dmcnet_tpu_torch.ops import backtrace as bt
-    from dmcnet_tpu_torch.ops.bench_backtrace import RAGGED, device_ms
     from dmcnet_tpu_torch.serving import DMCPredictor
 
     # 1. device ------------------------------------------------------------
@@ -685,8 +710,8 @@ def main():
         lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20, torch)
     print(f"  backtrace_warp_batch by the earlier method (median of 20 "
           f"event-timed calls, host work inside): {kernel_median_ms:.4f} ms")
-    kernel_ms = device_ms(
-        lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20)
+    kernel_ms = device_ms_per_call(
+        lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20, torch)
     plain_ms = median_ms(
         lambda: bt.backtrace_warp_batch_ref(cm_d, ifr_d, H, W, CELL), 5,
         torch)

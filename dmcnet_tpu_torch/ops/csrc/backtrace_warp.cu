@@ -50,21 +50,22 @@
 //     T-1 steps (the middle frame of an odd T alone, frame 0 none): the
 //     work is balanced, and one 256x320, T = 12 GOP of B2 is 240 blocks
 //     of 512 threads, one wave;
-//   * one flat grid: block b serves (g, k) = b / nchunk and a chunk of that
-//     pair's pixel runs; divisions by runtime sizes are multiply-shift
-//     (`FastDiv`).  No grid axis is bounded by G or T, and the only ragged
-//     edge, the last chunk of a plane, is masked by `v < v_end`;
+//   * one flat grid: block b serves (g, k) = b / nchunk and a chunk of 512
+//     of that pair's pixel runs; divisions by runtime sizes are
+//     multiply-shift (`FastDiv`).  No grid axis is bounded by G or T, and
+//     the only ragged edge, the last chunk of a plane, is masked by
+//     `v < nvec`;
 //   * the cell grids are read through L1 (`__ldg`).  Staging a GOP's grids
-//     in shared memory (BACKTRACE_STAGE_CELLS=1) was measured against it:
-//     it is slower for B1 and for B2 at cell 8, faster for B2 at cell 16
-//     by about a microsecond, and cannot hold the grids of large frames
-//     (227 KB a block), so L1 stays, with no size limit.
+//     in shared memory was measured against it (PERF.md, PR 3): slower for
+//     B1 and for B2 at cell 8, faster for B2 at cell 16 by about a
+//     microsecond, and unable to hold the grids of large frames (227 KB a
+//     block), so L1 stays, with no size limit.
 //
-// Tuning knobs, compile-time; ops/bench_backtrace.py builds and times each,
-// and PERF.md keeps the readings: BACKTRACE_PIX (pixels per thread: 4; 1,
-// 2 and 8 for comparison), BACKTRACE_THREADS (per block), BACKTRACE_STREAMING (0: write-back
-// stores), BACKTRACE_STAGE_CELLS and BACKTRACE_STAGE_ITERS (pixel runs per
-// thread when staging).
+// 4 pixels a thread, 512 threads a block and streaming stores won a sweep
+// against 1, 2 and 8 pixels, 256 threads, write-back stores and staged
+// grids; PERF.md keeps the times, and tools/bench_torch_backtrace.py times
+// this file against any other source with the same C interface (such as
+// a variant taken from git history).
 //
 // Plain C interface (built with nvcc into a shared library, bound with
 // ctypes by ops/_build.py): each `*_launch` launches on the given stream and
@@ -74,31 +75,10 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#ifndef BACKTRACE_PIX
-#define BACKTRACE_PIX 4
-#endif
-#ifndef BACKTRACE_STAGE_CELLS
-#define BACKTRACE_STAGE_CELLS 0
-#endif
-#ifndef BACKTRACE_THREADS
-#define BACKTRACE_THREADS 512
-#endif
-#ifndef BACKTRACE_STREAMING
-#define BACKTRACE_STREAMING 1
-#endif
-#ifndef BACKTRACE_STAGE_ITERS
-#define BACKTRACE_STAGE_ITERS 4
-#endif
-
 namespace {
 
-constexpr int kPix = BACKTRACE_PIX;
-constexpr int kThreads = BACKTRACE_THREADS;
-constexpr bool kStage = BACKTRACE_STAGE_CELLS != 0;
-constexpr bool kStreaming = BACKTRACE_STREAMING != 0;
-// 4 is the design; 1, 2 and 8 exist for the sweep
-static_assert(kPix == 1 || kPix == 2 || kPix == 4 || kPix == 8,
-              "a thread owns 1, 2, 4 or 8 pixels");
+constexpr int kPix = 4;  // pixels a thread: one int4 per plane
+constexpr int kThreads = 512;
 
 // n / d for 0 <= n < 2^31 and 1 <= d < 2^31, as (umulhi(n, mul) + n) >> shr
 // (round-up multiply-shift division).
@@ -139,15 +119,13 @@ struct Params {
   int frame_cells;          // ncy * ncx
   int plane;                // H * W
   int nvec;                 // pixel runs per plane: H * W / kPix
-  int vpb;                  // pixel runs per block
   FastDiv nchunk;           // blocks per (g, k)
   FastDiv npair;            // K = ceil(T / 2) frame pairs per GOP
   FastDiv row_runs;         // W / kPix
 };
 
-// Follow kPix pixels (y, x0 + j) back from frame t to the I-frame.  `cells`
-// is the GOP's grids in device memory, or their copy in shared memory from
-// frame 1 on when staged.
+// Follow kPix pixels (y, x0 + j) back from frame t to the I-frame through
+// `cells`, the GOP's grids.
 __device__ __forceinline__ void walk(const Params& p, const int2* cells,
                                      int t, int y, int x0, int (&qx)[kPix],
                                      int (&qy)[kPix]) {
@@ -157,18 +135,16 @@ __device__ __forceinline__ void walk(const Params& p, const int2* cells,
     qy[j] = y;
   }
   for (int s = t; s >= 1; --s) {
-    // frame s's grid: in the GOP's grids, or in the staged copy, which
-    // starts at frame 1.  q stays in the frame, so the cell index is an
+    // frame s's grid.  q stays in the frame, so the cell index is an
     // unsigned 32-bit offset from it.
-    const int2* f = cells + static_cast<size_t>(kStage ? s - 1 : s) *
-                                p.frame_cells;
+    const int2* f = cells + static_cast<size_t>(s) * p.frame_cells;
     int2 m[kPix];
 #pragma unroll
     for (int j = 0; j < kPix; ++j) {
       const unsigned idx =
           static_cast<unsigned>(qy[j] >> p.shift) * p.ncx +
           static_cast<unsigned>(qx[j] >> p.shift);
-      m[j] = kStage ? f[idx] : __ldg(wide_index(f, idx));
+      m[j] = __ldg(wide_index(f, idx));
     }
 #pragma unroll
     for (int j = 0; j < kPix; ++j) {
@@ -183,28 +159,11 @@ __device__ __forceinline__ void walk(const Params& p, const int2* cells,
   }
 }
 
-template <typename V>
-__device__ __forceinline__ void store(V* dst, V v) {
-  if constexpr (kStreaming)
-    __stcs(dst, v);
-  else
-    *dst = v;
-}
-
-// One run of kPix pixels into one plane: 16-byte stores (4 or 8 pixels),
-// or one 8- or 4-byte store.
+// One run of kPix pixels into one plane: one 16-byte streaming store
+// (st.global.cs, evict-first in L2).
 __device__ __forceinline__ void store_run(int32_t* dst,
                                           const int (&v)[kPix]) {
-  if constexpr (kPix == 1) {
-    store(dst, v[0]);
-  } else if constexpr (kPix == 2) {
-    store(reinterpret_cast<int2*>(dst), make_int2(v[0], v[1]));
-  } else {
-#pragma unroll
-    for (int j = 0; j < kPix; j += 4)
-      store(reinterpret_cast<int4*>(dst + j),
-            make_int4(v[j], v[j + 1], v[j + 2], v[j + 3]));
-  }
+  __stcs(reinterpret_cast<int4*>(dst), make_int4(v[0], v[1], v[2], v[3]));
 }
 
 // Write frame t of GOP g at pixel offset `pix`: accu, and with kWarp the
@@ -243,16 +202,8 @@ backtrace_kernel(const Params p) {
   const int k = gk - g * p.npair.d;  // frames k and T-1-k
   const int t2 = p.T - 1 - k;
   const int2* cells = p.cells + static_cast<size_t>(g) * p.T * p.frame_cells;
-  if constexpr (kStage) {
-    extern __shared__ int2 staged[];
-    const int n = t2 * p.frame_cells;  // frames 1..t2
-    for (int i = threadIdx.x; i < n; i += kThreads)
-      staged[i] = __ldg(cells + p.frame_cells + i);
-    __syncthreads();
-    cells = staged;
-  }
-  const int v_end = min(p.nvec, (chunk + 1) * p.vpb);
-  for (int v = chunk * p.vpb + threadIdx.x; v < v_end; v += kThreads) {
+  const int v = chunk * kThreads + threadIdx.x;
+  if (v < p.nvec) {
     const int y = fdiv(v, p.row_runs);
     const int x0 = (v - y * static_cast<int>(p.row_runs.d)) * kPix;
     const size_t pix = static_cast<size_t>(y) * p.W + x0;
@@ -286,26 +237,14 @@ int launch(const void* cell_mv, const void* iframes, void* accu,
   p.frame_cells = (H / cell) * p.ncx;
   p.plane = H * W;
   p.nvec = H * (W / kPix);
-  p.vpb = kStage ? kThreads * BACKTRACE_STAGE_ITERS : kThreads;
-  const int nchunk = (p.nvec + p.vpb - 1) / p.vpb;
+  const int nchunk = (p.nvec + kThreads - 1) / kThreads;
   const int K = (T + 1) / 2;
   const int64_t blocks = static_cast<int64_t>(nchunk) * K * G;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidConfiguration);
   p.nchunk = make_fastdiv(nchunk);
   p.npair = make_fastdiv(K);
   p.row_runs = make_fastdiv(W / kPix);
-  size_t smem = 0;
-  if (kStage) {
-    smem = static_cast<size_t>(T - 1) * p.frame_cells * sizeof(int2);
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          backtrace_kernel<kWarp>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-  }
-  backtrace_kernel<kWarp><<<static_cast<unsigned>(blocks), kThreads, smem,
+  backtrace_kernel<kWarp><<<static_cast<unsigned>(blocks), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

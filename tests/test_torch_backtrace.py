@@ -15,7 +15,6 @@ from dmcnet_tpu.ops import pallas_backtrace as pb
 from dmcnet_tpu_torch.codec import semantics as tsem
 from dmcnet_tpu_torch.codec import synthetic as tsyn
 from dmcnet_tpu_torch.ops import backtrace as tb
-from dmcnet_tpu_torch.ops.bench_backtrace import RAGGED
 
 
 def _random_cells(rng, g, t, h, w, cell, bound=None):
@@ -311,9 +310,13 @@ def test_cuda_kernel_matches_plain_version(cell):
     assert torch.equal(warped, rw)
 
 
-# Widths whose rows do not fill a block's run of pixels, heights of one and
-# three cell rows, and T of one frame, one pair and an odd count (the
-# middle frame walks alone), at cell 8 and 16.
+# (cell, H, W, T): widths whose rows do not fill a block's run of pixels,
+# heights of one and three cell rows, and T of one frame, one pair and an
+# odd count (the middle frame walks alone), at cell 8 and 16.
+RAGGED = [(8, h, w, t) for w in (72, 88, 96) for h in (8, 24)
+          for t in (1, 2, 13)] + \
+         [(16, h, w, t) for w in (80, 96, 112) for h in (16, 48)
+          for t in (1, 2, 13)]
 RAGGED_IDS = [f"c{c}-{h}x{w}-T{t}" for c, h, w, t in RAGGED]
 
 
