@@ -4,13 +4,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from this checkout, holds each bit for bit
-against its plain PyTorch version on the card, then drives two paths at
+against its plain PyTorch version on the card, then drives three paths at
 full width and checks what comes out: the serving main path —
 DenseNetTiny + ResNet-18 at 224x224, 51 classes, seeded random weights —
 over one 64-GOP chunk of synthetic 256x320, 12-frame GOPs (192 clips), and
 the input side — codec accumulation on the card and the data layer at the
 HMDB-51 recipe's width (examples/hmdb51_gen_flow/run.sh: batch 40, 3
-segments, mv, mv_minmaxnorm, input 224) through to logits.  Phases:
+segments, mv, mv_minmaxnorm, input 224) through to logits, and dmcnet
+training at that width.  Phases:
 
   1. device      card name, count, power limit (nvidia-smi); TF32 off
   2. build       nvcc of ops/csrc/backtrace_warp.cu, with ptxas' report
@@ -44,14 +45,26 @@ segments, mv, mv_minmaxnorm, input 224) through to logits.  Phases:
                  count read around the phase; median batch times; a real
                  CoviarDataset over two encoded clips when the native
                  decoder builds, otherwise one line says why not
-  8. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+  8. train       dmcnet training at the HMDB-51 recipe's width (batch 40 x
+                 3 segments at 224, DenseNetTiny + ResNet-18, lr 0.01,
+                 lr-mse 1, flow_ds_factor 16) on synthetic datasets whose
+                 GOPs B2 accumulates and whose flow target is the
+                 accumulated MV: one train step on the card against the CPU
+                 (4 videos), a freeze-phase step (classifier and its Adam
+                 state bit-unchanged), median step and eval times, clips/s
+                 and peak memory in fp32, TF32 and bf16, the cli.train loop
+                 (2 epochs x 2 batches, 8 loader threads) with its data and
+                 batch times, its checkpoint reloaded bit-equal and served
+                 by DMCPredictor.from_checkpoint; B2's launches over the
+                 phase
+  9. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
 Any failure raises and exits non-zero.  The last lines are a `kernels` JSON
 object, a summary JSON object, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.  Needs no network; takes about two
-minutes on an H100.
+`{"ok": true, "device": {...}}`.  Needs no network; takes about 80 s on
+an H100.
 """
 
 from __future__ import annotations
@@ -89,6 +102,21 @@ BATCH, SEGMENTS, MINMAX_BOUND = 40, 3, 20
 # Card vs CPU crops after normalization: float32, TF32 off; the resampling
 # products are summed in different orders.
 NORM_ATOL = 5e-5
+# The train phase: examples/hmdb51_gen_flow/run.sh's flags, and the
+# tolerances of tests/test_torch_train.py for card against CPU.  Parameters
+# are compared after a float64 step: in float32, Adam (eps 1e-3) turns the
+# noise of a gradient near eps into most of a step (conv1 weights 8.8e-5
+# apart after one step of 1e-4, TF32 off), whatever the card computes.
+TRAIN_RECIPE = ["--data-name", "hmdb51", "--representation", "mv",
+                "--arch", "resnet18", "--arch_estimator", "DenseNetTiny",
+                "--num_segments", str(SEGMENTS), "--no-accumulation",
+                "--mv_minmaxnorm", "1", "--flow_ds_factor", "16",
+                "--gen_flow_or_delta", "1", "--lr", "0.01", "--lr-mse", "1",
+                "--lr-steps", "55", "110", "165", "--lr-decay", "0.25"]
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 5e-4, 5e-6
+TRAIN_TIMED_STEPS = 5
+LONG_EPOCH_BATCHES = 8
 # (cell, H, W, T) the kernels must mask: widths whose rows do not fill a
 # block's run of pixels, one and three cell rows, and T of one frame, one
 # pair and an odd count (the middle frame walks alone).
@@ -157,32 +185,41 @@ def host_ms(fn, n, torch):
     return statistics.median(times)
 
 
-def synthetic_dataset(pool, num_videos, is_train, device, cache):
+def synthetic_dataset(pool, num_videos, is_train, device, cache,
+                      flow_from_mv=False):
     """A `CoviarDataset` over synthetic GOPs instead of decoded video: its
     own sampling and item contract — (S, H, W, 7) uint8 group stack,
     label, (H, W) — with each GOP's MV and residual accumulated on the
     card by `gop_mv_residual_cuda` and u8-encoded on the host once, like
-    the dataset's GOP cache.  Video v's GOP k is pool GOP (v + k) %
-    len(pool); the flow channels are neutral (128), as without a flow
-    root.  `cache` maps pool index -> (mv_u8, res_u8) across datasets."""
+    the dataset's GOP cache (under a lock: loader threads share it).
+    Video v has label v % NUM_CLASS, and its GOP k is pool GOP (label + k)
+    % len(pool).  The flow channels are neutral (128), as without a flow
+    root, or with `flow_from_mv` the u8-encoded accumulated MV, a target
+    that is not constant.  `cache` maps pool index -> (mv_u8, res_u8)
+    across datasets."""
+    import threading
+
     from dmcnet_tpu_torch.data.dmc_dataset import CoviarDataset, _encode_u8
     from dmcnet_tpu_torch.data.lists import VideoItem
     from dmcnet_tpu_torch.ops.backtrace import gop_mv_residual_cuda
 
+    lock = threading.Lock()
+
     class SyntheticCoviarDataset(CoviarDataset):
         def _segment_frame(self, item, gop_index, gop_pos):
             k = (item.label + gop_index) % len(pool)
-            if k not in cache:
-                mv, res = gop_mv_residual_cuda(*pool[k], device=device)
-                cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
-                            _encode_u8(res.cpu().numpy()))
+            with lock:
+                if k not in cache:
+                    mv, res = gop_mv_residual_cuda(*pool[k], device=device)
+                    cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
+                                _encode_u8(res.cpu().numpy()))
             mv_u8, res_u8 = cache[k]
-            flow = np.full((H, W, 2), 128, np.uint8)
+            flow = mv_u8[gop_pos] if flow_from_mv else \
+                np.full((H, W, 2), 128, np.uint8)
             return np.concatenate([flow, mv_u8[gop_pos], res_u8[gop_pos]],
                                   axis=-1)
 
-    check(num_videos <= NUM_CLASS, "one label per synthetic video")
-    items = [VideoItem(f"synthetic/{v}.avi", v, 3 * T)
+    items = [VideoItem(f"synthetic/{v}.avi", v % NUM_CLASS, 3 * T)
              for v in range(num_videos)]
     return SyntheticCoviarDataset(None, None, None, "mv", SEGMENTS,
                                   is_train=is_train, gop=T, mv_minmaxnorm=1,
@@ -485,6 +522,244 @@ def data_phase(torch, bt, dev, gops, pred, rng):
     return {"b2_launches": b2_launches, "times": times}
 
 
+def _state_close(torch, a, b, what):
+    """Two DMCNet state_dicts within the train tests' tolerance."""
+    for k, v in a.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        w = b[k].to(v.device)
+        check(torch.allclose(v, w, rtol=TRAIN_PARAM_RTOL,
+                             atol=TRAIN_PARAM_ATOL),
+              f"{what}: {k} differs by {float((v - w).abs().max()):.3g}")
+
+
+def _equal_optimizer_states(a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    if sa["param_groups"] != sb["param_groups"] or sa["state"].keys() != \
+            sb["state"].keys():
+        return False
+    return all(all(v.cpu().equal(sb["state"][i][k].cpu())
+                   for k, v in st.items()) for i, st in sa["state"].items())
+
+
+def train_phase(torch, bt, dev, gops):
+    """8. dmcnet training at the HMDB-51 recipe's width, with the loop's
+    checkpoints in a temporary directory of the checkout."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(
+            __file__))) as workdir:
+        return _train_phase(torch, bt, dev, gops, workdir)
+
+
+def _train_phase(torch, bt, dev, gops, workdir):
+    """8. dmcnet training at the HMDB-51 recipe's width: one train step on
+    the card against the CPU, a freeze-phase step, step and eval times in
+    fp32, TF32 and bf16, the `cli.train` loop over synthetic datasets with
+    its data and batch times, its checkpoint reloaded and served.  Returns
+    the numbers for the summary line."""
+    import os
+
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+    from dmcnet_tpu_torch.data.dmc_dataset import (
+        BatchAssembler,
+        augment_eval_batch,
+        augment_train_batch,
+    )
+    from dmcnet_tpu_torch.models.tsn import segment_consensus
+    from dmcnet_tpu_torch.serving import DMCPredictor
+    from dmcnet_tpu_torch.train import checkpoints as tckpt
+    from dmcnet_tpu_torch.train import engine
+    from dmcnet_tpu_torch.train import optimizers as topt
+
+    phase("train")
+    t0 = time.perf_counter()
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = {}  # not the data phase's: this phase accumulates its own GOPs
+    bt.backtrace_gop_cells.launches = 0
+    train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
+                                 flow_from_mv=True)
+    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
+                               flow_from_mv=True)
+    args = build_parser().parse_args(TRAIN_RECIPE + [
+        "--epochs", "2", "--epoch-thre", "1", "--eval-freq", "1",
+        "--workers", "8", "--batch-size", str(BATCH),
+        "--model-prefix", os.path.join(workdir, "model")])
+    aug = dict(representation="mv", flow_ds_factor=args.flow_ds_factor,
+               input_size=SIZE)
+    raw = BatchAssembler(train_ds, input_size=SIZE, seed=0).train_batch(
+        range(BATCH))
+    batch = augment_train_batch(raw, device=dev, **aug)
+    val_raw = BatchAssembler(val_ds, input_size=SIZE, test_crops=1) \
+        .eval_batch(range(BATCH))
+    val_batch = augment_eval_batch(val_raw, device=dev, **aug)
+    torch.cuda.synchronize()
+    print(f"  set-up (2 synthetic datasets, a {BATCH} x {SEGMENTS} train and "
+          f"eval batch at {SIZE}, flow target = accumulated MV) "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    def stepper(model, bf16=False):
+        opts = topt.make_optimizers(model, args.lr_cls_mult,
+                                    args.lr_mse_mult)
+        topt.adjust_learning_rate(opts, args.lr, args.weight_decay)
+        kw = dict(num_segments=SEGMENTS, lr_cls_w=args.lr_cls,
+                  lr_mse_w=args.lr_mse, loss_mse=args.loss_mse, bf16=bf16)
+        return (opts, engine.make_train_step(model, *opts, **kw),
+                engine.make_eval_step(model, **kw))
+
+    # (a) one step on the card against the same step on the CPU, 4 videos:
+    # in float32 (TF32 off) the losses and accuracies; in float64 those and
+    # every parameter and BN statistic (see TRAIN_PARAM_RTOL)
+    n_cpu = 4
+    for dtype in (torch.float32, torch.float64):
+        gpu_model = train_cli.build_model(args, NUM_CLASS).to(dev, dtype)
+        cpu_model = train_cli.build_model(args, NUM_CLASS).to(dtype=dtype)
+        small = {k: v[:n_cpu].to(dtype) if v.is_floating_point()
+                 else v[:n_cpu] for k, v in batch.items()}
+        got = stepper(gpu_model)[1](small, True)
+        want = stepper(cpu_model)[1]({k: v.cpu() for k, v in small.items()},
+                                     True)
+        for k in ("loss", "loss_cls", "loss_mse", "top1", "top5"):
+            g, w = float(got[k]), float(want[k])
+            check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
+                  f"train step {k} ({dtype}): card {g} != CPU {w}")
+        what = "losses and top-1/5"
+        if dtype == torch.float64:
+            _state_close(torch, cpu_model.state_dict(),
+                         gpu_model.state_dict(), "train step, card vs CPU")
+            what += (f", parameters and BN statistics within rtol "
+                     f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL}")
+        print(f"  one train step, {n_cpu} videos x {SEGMENTS} at {SIZE}, "
+              f"{str(dtype)[6:]}: loss card {float(got['loss']):.7f} / CPU "
+              f"{float(want['loss']):.7f}; {what} (losses rtol "
+              f"{TRAIN_LOSS_RTOL}, TF32 off)")
+
+    # (b) a freeze-phase step: the classifier and its Adam state untouched
+    model = train_cli.build_model(args, NUM_CLASS).to(dev)
+    opts, step, eval_step = stepper(model)
+    step(batch, True)  # so that the classifier's Adam state exists
+    cls_before = {k: v.clone() for k, v in
+                  model.base_model.named_parameters()}
+    gen_before = {k: v.clone() for k, v in
+                  model.gen_flow_model.named_parameters()}
+    opt_cls_before = {i: {k: v.clone() for k, v in st.items()}
+                      for i, st in opts[0].state_dict()["state"].items()}
+    step(batch, False)
+    check(all(torch.equal(v, cls_before[k])
+              for k, v in model.base_model.named_parameters()),
+          "the freeze step moved the classifier")
+    check(all(all(torch.equal(v, opt_cls_before[i][k])
+                  for k, v in st.items())
+              for i, st in opts[0].state_dict()["state"].items()),
+          "the freeze step changed the classifier's Adam state")
+    moved = sum(not torch.equal(v, gen_before[k])
+                for k, v in model.gen_flow_model.named_parameters())
+    check(moved > 0, "the freeze step did not move the generator")
+    print(f"  freeze-phase step ({BATCH} x {SEGMENTS}): classifier parameters "
+          f"and Adam state bit-unchanged; {moved} generator tensors moved")
+
+    # (c) step and eval times at the recipe's batch
+    clips = BATCH * SEGMENTS
+    timing = {}
+    for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
+                              ("bf16", False, True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        _, t_step, t_eval = stepper(model, bf16=bf16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = median_ms(lambda: t_step(batch, True), TRAIN_TIMED_STEPS,
+                            torch)
+        eval_ms = median_ms(lambda: t_eval(val_batch), TRAIN_TIMED_STEPS,
+                            torch)
+        peak = torch.cuda.max_memory_allocated()
+        timing[label] = {"step_ms": step_ms, "clips_per_s": clips / step_ms
+                         * 1e3, "eval_ms": eval_ms, "peak_bytes": peak}
+        print(f"  {label}: train step {step_ms:.3f} ms (median of "
+              f"{TRAIN_TIMED_STEPS}, CUDA events) = "
+              f"{clips / step_ms * 1e3:.1f} clips/s; eval step "
+              f"{eval_ms:.3f} ms; peak memory {peak / 2**30:.3f} GiB")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    # (d) the cli.train loop: 2 epochs x 2 batches, 8 loader threads
+    train_cli.SAVE_FREQ = 1  # write after each epoch: the file then holds
+    # the state the loop ends with
+    t0 = time.perf_counter()
+    result = train_cli.train(args, train_ds, val_ds, device=dev,
+                             input_size=SIZE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(len(result.epochs) == 2, "the loop did not run 2 epochs")
+    for e in result.epochs:
+        print(f"  loop epoch {e['epoch']}: data time {e['data_time']:.4f} s, "
+              f"batch time {e['batch_time']:.4f} s (averages over "
+              f"{len(train_ds) // BATCH} batches, host clock)")
+    print(f"  loop: 2 epochs with evaluation in {loop_s:.2f} s")
+    # the same loop over one longer frozen epoch: whether the loader keeps
+    # up once its threads run ahead of the first batch
+    long_args = build_parser().parse_args(TRAIN_RECIPE + [
+        "--epochs", "1", "--workers", "8", "--batch-size", str(BATCH),
+        "--model-prefix", os.path.join(workdir, "long")])
+    long_ds = synthetic_dataset(pool, LONG_EPOCH_BATCHES * BATCH, True, dev,
+                                cache, flow_from_mv=True)
+    t0 = time.perf_counter()
+    long_epoch = train_cli.train(long_args, long_ds, val_ds, device=dev,
+                                 input_size=SIZE).epochs[0]
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    steady = {k: statistics.median(long_epoch[k + "s"][1:])
+              for k in ("data_time", "batch_time")}
+    print(f"  loop, one frozen epoch of {LONG_EPOCH_BATCHES} batches in "
+          f"{long_s:.2f} s: data time {long_epoch['data_time']:.4f} s, "
+          f"batch time {long_epoch['batch_time']:.4f} s (averages); after "
+          f"the first batch median data time {steady['data_time']:.4f} s, "
+          f"batch time {steady['batch_time']:.4f} s; per batch data "
+          + " ".join(f"{t:.3f}" for t in long_epoch["data_times"]))
+
+    # (e) the checkpoint reloads bit-equal and serves
+    ckpt = result.checkpoint
+    check(ckpt is not None and os.path.exists(ckpt), "no checkpoint written")
+    model2 = train_cli.build_model(args, NUM_CLASS).to(dev)
+    opts2 = topt.make_optimizers(model2, args.lr_cls_mult, args.lr_mse_mult)
+    meta = tckpt.load_checkpoint(ckpt, model2, opts2)
+    check(meta["epoch"] == 2, f"checkpoint epoch {meta['epoch']}")
+    sd, sd2 = result.model.state_dict(), model2.state_dict()
+    check(all(torch.equal(v, sd2[k]) for k, v in sd.items()),
+          "reloaded parameters or BN buffers differ")
+    check(all(_equal_optimizer_states(a, b)
+              for a, b in zip(result.optimizers, opts2)),
+          "reloaded optimizer state differs")
+    pred = DMCPredictor.from_checkpoint(ckpt, num_class=NUM_CLASS,
+                                        device=dev)
+    with torch.inference_mode():
+        result.model.eval()
+        want = result.model(val_batch["mv"], val_batch["residual"])[0]
+        got = pred.model.classify(pred.model.generate(
+            val_batch["mv"], val_batch["residual"]))
+        scores = segment_consensus(got, SEGMENTS)
+    check(tuple(scores.shape) == (BATCH, NUM_CLASS)
+          and bool(torch.isfinite(scores).all()), "served scores")
+    check(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          "served logits differ from the trained model's")
+    print(f"  checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}): "
+          "parameters, BN buffers and both Adam states reload bit-equal; "
+          f"DMCPredictor.from_checkpoint scores {BATCH} videos, logits max "
+          f"|diff| {float((got - want).abs().max()):.3g} from the trained "
+          "model")
+
+    # (f) B2 on the phase's path
+    b2 = bt.backtrace_gop_cells.launches
+    print(f"  backtrace_gop_cells launches over the phase: {b2}")
+    check(b2 >= 1, "the train phase did not launch B2")
+    return {"timing": timing, "epochs": result.epochs, "loop_s": loop_s,
+            "long_epoch": long_epoch, "long_epoch_s": long_s,
+            "steady": steady, "b2_launches": b2}
+
+
 def main():
     import torch
 
@@ -729,8 +1004,9 @@ def main():
 
     codec_times = codec_phase(torch, bt, dev, gops)
     data = data_phase(torch, bt, dev, gops, pred, rng)
+    train = train_phase(torch, bt, dev, gops)
 
-    # 8. videos --------------------------------------------------------------
+    # 9. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -805,7 +1081,8 @@ def main():
                       "b2_wrapper_ms": b2["wrapper_ms"],
                       "launch_floor_ms": b2["floor_ms"],
                       "codec_ms": codec_times,
-                      "data_ms": data["times"], "card": smi}))
+                      "data_ms": data["times"], "train": train,
+                      "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

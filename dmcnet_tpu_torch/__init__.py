@@ -13,9 +13,14 @@ package's module names so every counterpart can be found:
                   versions, and `gop_mv_residual_cuda`
   data/           lists, TSN sampling, the CoViAR dataset and its batches,
                   crops and normalization on a device, the batch loader
-  models/         DenseNet estimators, ResNet-18/34, DMCNet, weight bridge
+  models/         estimators (ContextNetwork(-Att), DenseNet family, Tiny
+                  early fusion), ResNet-18/34, DMCNet, PlainTSN, weight
+                  bridge
+  train/          Adam parameter groups, train/eval steps with the freeze
+                  phase, meters, checkpoints
+  utils/          JSON-lines metrics log
   serving         DMCPredictor: compressed video in, action scores out
-  cli/serve       batch / stdin scoring command
+  cli/            serve (batch / stdin scoring), train, test, combine
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 CUDA and without an explicit device they raise.

@@ -27,33 +27,8 @@ import time
 
 import numpy as np
 
-
-def num_classes_for(data_name):
-    """Class count of a dataset (counterpart of
-    dmcnet_tpu/cli/train_options.py:179)."""
-    table = {"ucf101": 101, "hmdb51": 51, "kinetics400": 400}
-    if data_name not in table:
-        raise ValueError("Unknown dataset " + str(data_name))
-    return table[data_name]
-
-
-def save_scores_npz(path, outputs, labels, name_list):
-    """Bit-compatible with reference test.py:183-198: reorder everything by
-    sorted(video name) and savez object arrays (counterpart of
-    dmcnet_tpu/cli/test.py:89)."""
-    order_dict = {e: i for i, e in enumerate(sorted(name_list))}
-    n = len(outputs)
-    reorder_output = [None] * n
-    reorder_label = [None] * n
-    reorder_name = [None] * n
-    for i in range(n):
-        idx = order_dict[name_list[i]]
-        reorder_output[idx] = outputs[i]
-        reorder_label[idx] = labels[i]
-        reorder_name[idx] = name_list[i]
-    scores = np.empty(n, dtype=object)
-    scores[:] = reorder_output
-    np.savez(path, scores=scores, labels=reorder_label, names=reorder_name)
+from dmcnet_tpu_torch.cli.test import save_scores_npz
+from dmcnet_tpu_torch.cli.train_options import num_classes_for
 
 
 def build_parser():

@@ -1,14 +1,25 @@
-"""DMC generator networks, dense family (counterpart of
-`dmcnet_tpu/models/generators.py:110-178, 225-248`).
+"""DMC generator networks (counterpart of
+`dmcnet_tpu/models/generators.py`).
 
-MV (2 ch) + residual (3 ch) -> a 2-channel discriminative motion cue.  Five
-dense stages, each a 3x3 conv + LeakyReLU(0.1) whose output is concatenated
-IN FRONT of everything before it ([y, x]), then a bare 3x3 `predict_flow`
-conv (reference model.py:122-194).  Channel plans 128/128/96/64/32,
-32/32/24/16/8 and 8/8/6/4/2.  Module names follow the reference torch keys
-(`conv_0.0.weight`, ..., `predict_flow.weight`).
+MV (2 ch) + residual (3 ch) -> a 2-channel discriminative motion cue.
+Module names follow the reference torch keys
+(`dmcnet_tpu/models/export_torch.py:91-110`), so reference checkpoints load
+with `load_state_dict` directly.  Families:
 
-ContextNetwork and the early-fusion variants are not ported yet.
+  * ContextNetwork(-Att): seven dilated 3x3 stages, each conv (no bias) +
+    BN + LeakyReLU(0.1), the last 2-channel one included; dilations
+    1-2-4-8-16-1-1, or 1-2-4-8-1-1-1 when the cue is generated at reduced
+    resolution (`gen_flow_ds_factor`).  Keys `conv_context.{i}.0/.1`; the
+    attention variant ends in `predict_flow.0/.1` and `predict_att.0.0/
+    .0.1` heads, the attention one followed by ReLU (reference
+    model.py:45-104).
+  * Dense family: five stages, each a 3x3 conv + LeakyReLU(0.1) whose
+    output is concatenated IN FRONT of everything before it ([y, x]), then
+    a bare 3x3 `predict_flow` conv; channel plans 128/128/96/64/32,
+    32/32/24/16/8 and 8/8/6/4/2 (model.py:122-194).  Keys `conv_{i}.0`.
+  * Tiny early fusion: separate 3x3 stems for MV (`conv_0_mv.0`) and
+    residual (`conv_0_r.0`), merged by sum or stack, then the Tiny plan's
+    last four dense stages (model.py:197-250).
 """
 
 from __future__ import annotations
@@ -16,9 +27,58 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dmcnet_tpu_torch.models.layers import conv3x3
+from dmcnet_tpu_torch.models.layers import batch_norm, conv3x3
 
 _LEAKY_SLOPE = 0.1
+_CONTEXT_WIDTHS = (32, 128, 128, 96, 64, 32, 2)
+
+
+def _leaky():
+    return nn.LeakyReLU(_LEAKY_SLOPE)
+
+
+def _dilated_stage(c_in, c_out, dilation=1):
+    """conv(3x3, dilated, no bias) + BN + LeakyReLU(0.1) (reference
+    conv_dilation)."""
+    return nn.Sequential(conv3x3(c_in, c_out, dilation=dilation, bias=False),
+                         batch_norm(c_out), _leaky())
+
+
+def _context_trunk(dilations, in_channels=5):
+    stages, c = [], in_channels
+    for w, d in zip(_CONTEXT_WIDTHS, dilations):
+        stages.append(_dilated_stage(c, w, d))
+        c = w
+    return nn.Sequential(*stages)
+
+
+class ContextNetwork(nn.Module):
+    def __init__(self, gen_flow_ds_factor=0):
+        super().__init__()
+        dilations = (1, 2, 4, 8, 1, 1, 1) if gen_flow_ds_factor else (
+            1, 2, 4, 8, 16, 1, 1)
+        self.conv_context = _context_trunk(dilations)
+
+    def forward(self, x):
+        return self.conv_context(x)
+
+
+class ContextNetworkAtt(nn.Module):
+    """ContextNetwork's first six stages + a flow head and an attention
+    head; forward returns (flow, attention)."""
+
+    def __init__(self, gen_flow_ds_factor=0):
+        super().__init__()
+        dilations = (1, 2, 4, 8, 1, 1) if gen_flow_ds_factor else (
+            1, 2, 4, 8, 16, 1)
+        self.conv_context = _context_trunk(dilations)
+        c = _CONTEXT_WIDTHS[len(dilations) - 1]
+        self.predict_flow = _dilated_stage(c, 2)
+        self.predict_att = nn.Sequential(_dilated_stage(c, 2), nn.ReLU())
+
+    def forward(self, x):
+        x = self.conv_context(x)
+        return self.predict_flow(x), self.predict_att(x)
 
 
 class _DenseEstimator(nn.Module):
@@ -28,8 +88,8 @@ class _DenseEstimator(nn.Module):
         super().__init__()
         c = in_channels
         for i, w in enumerate(self.widths):
-            self.add_module(f"conv_{i}", nn.Sequential(
-                conv3x3(c, w), nn.LeakyReLU(_LEAKY_SLOPE)))
+            self.add_module(f"conv_{i}", nn.Sequential(conv3x3(c, w),
+                                                       _leaky()))
             c += w
         self.predict_flow = conv3x3(c, 2)
 
@@ -51,19 +111,60 @@ class EstimatorDenseNetTiny(_DenseEstimator):
     widths = (8, 8, 6, 4, 2)
 
 
+class _EarlyFusionTiny(nn.Module):
+    fusion = ""  # 'sum' | 'stack'
+    widths = (8, 6, 4, 2)
+
+    def __init__(self):
+        super().__init__()
+        self.conv_0_mv = nn.Sequential(conv3x3(2, 8), _leaky())
+        self.conv_0_r = nn.Sequential(conv3x3(3, 8), _leaky())
+        c = 8 if self.fusion == "sum" else 16
+        for i, w in enumerate(self.widths, start=1):
+            self.add_module(f"conv_{i}", nn.Sequential(conv3x3(c, w),
+                                                       _leaky()))
+            c += w
+        self.predict_flow = conv3x3(c, 2)
+
+    def forward(self, x):
+        x_mv = self.conv_0_mv(x[:, :2])
+        x_r = self.conv_0_r(x[:, 2:])
+        x = x_mv + x_r if self.fusion == "sum" else torch.cat([x_mv, x_r], 1)
+        for i in range(1, len(self.widths) + 1):
+            x = torch.cat([getattr(self, f"conv_{i}")(x), x], dim=1)
+        return self.predict_flow(x)
+
+
+class EstimatorDenseNetTinyEarlyFusionSum(_EarlyFusionTiny):
+    fusion = "sum"
+
+
+class EstimatorDenseNetTinyEarlyFusionStack(_EarlyFusionTiny):
+    fusion = "stack"
+
+
 _ESTIMATORS = {
     "DenseNet": EstimatorDenseNet,
     "DenseNetSmall": EstimatorDenseNetSmall,
     "DenseNetTiny": EstimatorDenseNetTiny,
+    "DenseNetTinyEarlyFusionSum": EstimatorDenseNetTinyEarlyFusionSum,
+    "DenseNetTinyEarlyFusionStack": EstimatorDenseNetTinyEarlyFusionStack,
 }
 
 
-def make_estimator(arch_estimator):
-    """Estimator by reference name (model.py:311-325); the dense family
-    only."""
+def make_estimator(arch_estimator, att=0, gen_flow_ds_factor=0):
+    """Estimator by reference name (model.py:311-325).  `att` selects
+    ContextNetworkAtt; only the ContextNetwork family has an attention
+    head."""
+    if arch_estimator == "ContextNetwork":
+        cls = ContextNetworkAtt if att else ContextNetwork
+        return cls(gen_flow_ds_factor=gen_flow_ds_factor)
+    if att:
+        raise ValueError(f"att=1 needs arch_estimator ContextNetwork, not "
+                         f"{arch_estimator!r}")
     try:
         return _ESTIMATORS[arch_estimator]()
     except KeyError:
         raise ValueError(
-            f"arch_estimator {arch_estimator!r} is not ported; choose one "
-            f"of {sorted(_ESTIMATORS)}") from None
+            f"unknown arch_estimator {arch_estimator!r}; choose one of "
+            f"{sorted(_ESTIMATORS) + ['ContextNetwork']}") from None

@@ -1,22 +1,35 @@
-"""DMCNet in eval mode: generator + TSN classifier (counterpart of
-`dmcnet_tpu/models/tsn.py:53-56, 84-138`).
+"""DMCNet: generator + TSN classifier, and the plain TSN (counterpart of
+`dmcnet_tpu/models/tsn.py`).
 
-Tensors are NCHW.  `generate` runs the estimator on concat(MV, residual)
-and, with `gen_flow_or_delta=1`, adds the MV back so the generator predicts
-a delta (reference model.py:345-346); `classify` runs the backbone on the
-cue.  The discriminator, downsampled generation and training are not ported
+Tensors are NCHW; segment stacks (B, S, C, H, W) are flattened to
+(B*S, C, H, W).  `DMCNet.generate` runs the estimator on concat(MV,
+residual), optionally on inputs average-pooled by `gen_flow_ds_factor`
+(reference model.py:326-337); with `gen_flow_or_delta=1` it adds the MV
+back so the generator predicts a delta (model.py:345-346); a downsampled
+cue is TILED back to full size, as the reference's torch `.repeat` does
+(model.py:348), not upsampled.  `classify` runs the backbone on the cue,
+detached when `detach_classifier` is set, so the generator learns from the
+reconstruction loss only (model.py:352).  Train or eval mode is the
+module's own (`.train()` / `.eval()`).  The GAN discriminator is not ported
 yet.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dmcnet_tpu_torch.models.generators import make_estimator
 from dmcnet_tpu_torch.models.resnet import resnet18, resnet34
 
 _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34}
+
+
+def _backbone(arch, num_class, in_channels):
+    if arch not in _BACKBONES:
+        raise ValueError(f"unsupported base model {arch!r}")
+    return _BACKBONES[arch](num_class, in_channels=in_channels)
 
 
 def _flatten_segments(x):
@@ -31,33 +44,61 @@ def segment_consensus(logits, num_segments):
         .mean(dim=1)
 
 
+class PlainTSN(nn.Module):
+    """Plain CoViAR-style TSN: the backbone classifies the modality input
+    directly, no generator (`cli/test.py --plain 1`).  `in_channels` is the
+    modality's: 3 for iframe and residual, 2 for mv."""
+
+    def __init__(self, num_class, arch="resnet18", in_channels=3):
+        super().__init__()
+        self.base_model = _backbone(arch, num_class, in_channels)
+
+    def forward(self, x):
+        return self.base_model(_flatten_segments(x))
+
+
 class DMCNet(nn.Module):
-    """`forward(input_mv, input_residual)` -> (logits, gen_flow), like the
-    reference `Model.forward` without a discriminator."""
+    """`forward(input_mv, input_residual)` -> (logits, gen_flow), or
+    (logits, gen_flow, att_flow) with `att`, like the reference
+    `Model.forward` without a discriminator."""
 
     def __init__(self, num_class, num_segments=1, arch="resnet18",
-                 arch_estimator="DenseNetTiny", gen_flow_or_delta=0):
+                 arch_estimator="DenseNetTiny", gen_flow_or_delta=0,
+                 gen_flow_ds_factor=0, att=0, detach_classifier=True):
         super().__init__()
-        if arch not in _BACKBONES:
-            raise ValueError(f"unsupported base model {arch!r}")
         self.num_class = num_class
         self.num_segments = num_segments
         self.gen_flow_or_delta = gen_flow_or_delta
-        self.gen_flow_model = make_estimator(arch_estimator)
-        self.base_model = _BACKBONES[arch](num_class, in_channels=2)
+        self.gen_flow_ds_factor = gen_flow_ds_factor
+        self.att = att
+        self.detach_classifier = detach_classifier
+        self.gen_flow_model = make_estimator(arch_estimator, att,
+                                             gen_flow_ds_factor)
+        self.base_model = _backbone(arch, num_class, in_channels=2)
 
     def generate(self, input_mv, input_residual):
+        """-> gen_flow, or (gen_flow, att_flow) with `att`."""
         input_mv = _flatten_segments(input_mv)
         input_residual = _flatten_segments(input_residual)
-        gen_flow = self.gen_flow_model(
-            torch.cat([input_mv, input_residual], dim=1))
+        f = self.gen_flow_ds_factor
+        if f:
+            input_mv = F.avg_pool2d(input_mv, f, f)
+            input_residual = F.avg_pool2d(input_residual, f, f)
+        out = self.gen_flow_model(torch.cat([input_mv, input_residual],
+                                            dim=1))
+        gen_flow, att_flow = out if self.att else (out, None)
         if self.gen_flow_or_delta == 1:
             gen_flow = gen_flow + input_mv
-        return gen_flow
+        if f:
+            gen_flow = gen_flow.repeat(1, 1, f, f)
+        return (gen_flow, att_flow) if self.att else gen_flow
 
     def classify(self, gen_flow):
-        return self.base_model(gen_flow)
+        return self.base_model(gen_flow.detach() if self.detach_classifier
+                               else gen_flow)
 
     def forward(self, input_mv, input_residual):
-        gen_flow = self.generate(input_mv, input_residual)
-        return self.classify(gen_flow), gen_flow
+        out = self.generate(input_mv, input_residual)
+        gen_flow = out[0] if self.att else out
+        logits = self.classify(gen_flow)
+        return (logits, *out) if self.att else (logits, gen_flow)

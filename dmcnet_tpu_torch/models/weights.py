@@ -7,7 +7,8 @@ variables as nested dicts of numpy arrays and returns the port's
 conv kernels (kh, kw, I, O) -> OIHW, dense kernels (I, O) -> (O, I), BN
 scale/bias/mean/var -> weight/bias/running_mean/running_var.  The port's
 module names are the reference torch keys, so the result, and a reference
-`.pth.tar`, load with `load_state_dict` directly.
+`.pth.tar`, load with `load_state_dict` directly.  The GAN discriminator is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -66,27 +67,40 @@ def _resnet(out, params, bstats, prefix):
                     raise KeyError(f"unknown resnet leaf {name}.{sub}")
 
 
-def _estimator(out, params, prefix):
+def _estimator(out, params, bstats, prefix):
+    """Every estimator family, with the keys of
+    `dmcnet_tpu/models/export_torch.py:91-112`."""
     for name, node in params.items():
-        if re.fullmatch(r"conv_\d+", name):
+        bnode = bstats.get(name, {})
+        if re.fullmatch(r"conv_\d+(_mv|_r)?", name):
             # dense-family stage: Sequential(conv, LeakyReLU) -> .0
             _conv(out, f"{prefix}.{name}.0", node)
         elif name == "predict_flow" and "kernel" in node:
             _conv(out, f"{prefix}.predict_flow", node)
+        elif name in ("predict_flow", "predict_att"):
+            # ContextNetworkAtt heads: (conv, bn, LeakyReLU), the attention
+            # one wrapped once more with its ReLU
+            base = (f"{prefix}.{name}" if name == "predict_flow"
+                    else f"{prefix}.{name}.0")
+            _conv(out, f"{base}.0", node["conv"])
+            _bn(out, f"{base}.1", node["bn"], bnode.get("bn", {}))
+        elif re.fullmatch(r"stage_\d+", name):
+            base = f"{prefix}.conv_context.{name.split('_')[1]}"
+            _conv(out, f"{base}.0", node["conv"])
+            _bn(out, f"{base}.1", node["bn"], bnode.get("bn", {}))
         else:
-            raise KeyError(f"gen_flow_model module {name!r} is not ported "
-                           "(dense estimators only)")
+            raise KeyError(f"unknown gen_flow_model module {name!r}")
 
 
 def state_dict_from_flax(params, batch_stats):
-    """JAX-package {params, batch_stats} (nested dicts of arrays) -> the
-    port's DMCNet `state_dict` (float32 CPU tensors)."""
+    """JAX-package {params, batch_stats} (nested dicts of arrays) of a
+    DMCNet or PlainTSN -> the port's `state_dict` (float32 CPU tensors)."""
     out = {}
     for top, node in params.items():
         if top == "base_model":
             _resnet(out, node, batch_stats.get(top, {}), top)
         elif top == "gen_flow_model":
-            _estimator(out, node, top)
+            _estimator(out, node, batch_stats.get(top, {}), top)
         else:
             raise KeyError(f"module {top!r} is not ported")
     return out
