@@ -27,8 +27,7 @@ import time
 
 import numpy as np
 
-from dmcnet_tpu_torch.cli.test import save_scores_npz
-from dmcnet_tpu_torch.cli.train_options import num_classes_for
+from dmcnet_tpu_torch.cli.common import num_classes_for, save_scores_npz
 
 
 def build_parser():

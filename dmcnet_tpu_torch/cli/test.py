@@ -21,7 +21,12 @@ import time
 import numpy as np
 import torch
 
-from dmcnet_tpu_torch.cli.train_options import device_for, num_classes_for
+from dmcnet_tpu_torch.cli.common import (
+    device_for,
+    num_classes_for,
+    refuse_unported,
+    save_scores_npz,
+)
 from dmcnet_tpu_torch.data.dmc_dataset import (
     BatchAssembler,
     CoviarDataset,
@@ -97,43 +102,18 @@ def build_parser():
     return parser
 
 
-def save_scores_npz(path, outputs, labels, name_list):
-    """Bit-compatible with reference test.py:183-198: reorder everything by
-    sorted(video name) and savez object arrays."""
-    order_dict = {e: i for i, e in enumerate(sorted(name_list))}
-    n = len(outputs)
-    reorder_output = [None] * n
-    reorder_label = [None] * n
-    reorder_name = [None] * n
-    for i in range(n):
-        idx = order_dict[name_list[i]]
-        reorder_output[idx] = outputs[i]
-        reorder_label[idx] = labels[i]
-        reorder_name[idx] = name_list[i]
-    scores = np.empty(n, dtype=object)
-    scores[:] = reorder_output
-    np.savez(path, scores=scores, labels=reorder_label, names=reorder_name)
-
-
-def _refuse_unported(args):
-    refusals = [
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    refuse_unported([
         (args.viz, "--viz", "A item 10 (utils/viz)"),
         (args.pp > 1, "--pp", "A item 9 (parallel layer)"),
         (args.arch_d is not None, "--arch_d", "A item 7 (GAN)"),
         (args.gpus is not None and len(args.gpus) > 1,
          "--gpus with several ids", "A item 9 (parallel layer)"),
-    ]
-    for bad, flag, item in refusals:
-        if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP {item})")
+    ])
     if args.plain and args.att:
         raise SystemExit("--plain scores the bare TSN backbone (no "
                          "generator, no --att)")
-
-
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     device = device_for(args)
     if args.packed_gen:
         print(f"--packed-gen {args.packed_gen}: the port scores the unpacked "

@@ -29,11 +29,12 @@ import time
 
 import torch
 
-from dmcnet_tpu_torch.cli.train_options import (
-    build_parser,
+from dmcnet_tpu_torch.cli.common import (
     device_for,
     num_classes_for,
+    refuse_unported,
 )
+from dmcnet_tpu_torch.cli.train_options import build_parser
 from dmcnet_tpu_torch.data.dmc_dataset import (
     BatchAssembler,
     CoviarDataset,
@@ -62,28 +63,6 @@ PRINT_FREQ = 20
 _METRICS = ("loss", "loss_cls", "loss_mse", "top1", "top5")
 
 
-def refuse_unported(args):
-    """SystemExit for every flag whose slice is not ported yet."""
-    refusals = [
-        (args.fsdp, "--fsdp", "A item 9 (parallel layer)"),
-        ((args.tp or 0) > 1, "--tp > 1", "A item 9 (parallel layer)"),
-        (args.gpus is not None and len(args.gpus) > 1,
-         "--gpus with several ids", "A item 9 (parallel layer)"),
-        (args.dist_coordinator is not None
-         or args.dist_num_processes is not None
-         or args.dist_process_id is not None,
-         "--dist-*", "A item 9 (parallel layer)"),
-        (args.ckpt_backend.startswith("orbax"),
-         f"--ckpt-backend {args.ckpt_backend}",
-         "A item 2 (checkpoint formats)"),
-        (args.profile_dir is not None, "--profile-dir",
-         "A item 10 (utils/profiling)"),
-    ]
-    for bad, flag, item in refusals:
-        if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP {item})")
-
-
 def build_model(args, num_class):
     """The reference `Model` without a discriminator, initialised from a
     fixed seed."""
@@ -93,7 +72,7 @@ def build_model(args, num_class):
                       arch=args.arch, arch_estimator=args.arch_estimator,
                       gen_flow_or_delta=args.gen_flow_or_delta,
                       gen_flow_ds_factor=args.gen_flow_ds_factor,
-                      att=args.att, detach_classifier=True)
+                      att=args.att)
 
 
 def make_datasets(args):
@@ -279,7 +258,21 @@ def main(argv=None, input_size=224):
     print("Training arguments:")
     for k, v in sorted(vars(args).items()):
         print(f"\t{k}: {v}")
-    refuse_unported(args)
+    refuse_unported([
+        (args.fsdp, "--fsdp", "A item 9 (parallel layer)"),
+        ((args.tp or 0) > 1, "--tp > 1", "A item 9 (parallel layer)"),
+        (args.gpus is not None and len(args.gpus) > 1,
+         "--gpus with several ids", "A item 9 (parallel layer)"),
+        (args.dist_coordinator is not None
+         or args.dist_num_processes is not None
+         or args.dist_process_id is not None,
+         "--dist-*", "A item 9 (parallel layer)"),
+        (args.ckpt_backend.startswith("orbax"),
+         f"--ckpt-backend {args.ckpt_backend}",
+         "A item 2 (checkpoint formats)"),
+        (args.profile_dir is not None, "--profile-dir",
+         "A item 10 (utils/profiling)"),
+    ])
     device = device_for(args)
     train_ds, val_ds = make_datasets(args)
     return train(args, train_ds, val_ds, device=device,

@@ -8,10 +8,6 @@ parse, and `cli/train.py` refuses them by name with their ROADMAP item.
 
 import argparse
 
-import torch
-
-from dmcnet_tpu_torch import resolve_device
-
 
 def build_parser():
     parser = argparse.ArgumentParser(description="CoViAR")
@@ -153,20 +149,3 @@ def build_parser():
                              'state_dict, best_prec1}, reference '
                              'train.py:372-377) as <name>.ref.pth.tar.')
     return parser
-
-
-def num_classes_for(data_name):
-    table = {"ucf101": 101, "hmdb51": 51, "kinetics400": 400}
-    if data_name not in table:
-        raise ValueError("Unknown dataset " + str(data_name))
-    return table[data_name]
-
-
-def device_for(args):
-    """`--device`, with `--gpus N` selecting cuda:N; a CUDA device raises
-    when CUDA is unavailable."""
-    if args.device.startswith("cuda"):
-        resolve_device()
-        if args.gpus:
-            return torch.device(f"cuda:{args.gpus[0]}")
-    return torch.device(args.device)

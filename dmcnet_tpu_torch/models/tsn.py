@@ -7,11 +7,11 @@ residual), optionally on inputs average-pooled by `gen_flow_ds_factor`
 (reference model.py:326-337); with `gen_flow_or_delta=1` it adds the MV
 back so the generator predicts a delta (model.py:345-346); a downsampled
 cue is TILED back to full size, as the reference's torch `.repeat` does
-(model.py:348), not upsampled.  `classify` runs the backbone on the cue,
-detached when `detach_classifier` is set, so the generator learns from the
-reconstruction loss only (model.py:352).  Train or eval mode is the
-module's own (`.train()` / `.eval()`).  The GAN discriminator is not ported
-yet.
+(model.py:348), not upsampled.  `classify` runs the backbone on the
+detached cue, so the generator learns from the reconstruction loss only
+(model.py:352): the semantics without a discriminator, fixed until the GAN
+slice (ROADMAP A item 7) is ported.  Train or eval mode is the module's own
+(`.train()` / `.eval()`).
 """
 
 from __future__ import annotations
@@ -64,14 +64,13 @@ class DMCNet(nn.Module):
 
     def __init__(self, num_class, num_segments=1, arch="resnet18",
                  arch_estimator="DenseNetTiny", gen_flow_or_delta=0,
-                 gen_flow_ds_factor=0, att=0, detach_classifier=True):
+                 gen_flow_ds_factor=0, att=0):
         super().__init__()
         self.num_class = num_class
         self.num_segments = num_segments
         self.gen_flow_or_delta = gen_flow_or_delta
         self.gen_flow_ds_factor = gen_flow_ds_factor
         self.att = att
-        self.detach_classifier = detach_classifier
         self.gen_flow_model = make_estimator(arch_estimator, att,
                                              gen_flow_ds_factor)
         self.base_model = _backbone(arch, num_class, in_channels=2)
@@ -94,8 +93,7 @@ class DMCNet(nn.Module):
         return (gen_flow, att_flow) if self.att else gen_flow
 
     def classify(self, gen_flow):
-        return self.base_model(gen_flow.detach() if self.detach_classifier
-                               else gen_flow)
+        return self.base_model(gen_flow.detach())
 
     def forward(self, input_mv, input_residual):
         out = self.generate(input_mv, input_residual)

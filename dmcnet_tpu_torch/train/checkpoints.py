@@ -25,9 +25,8 @@ import torch
 from dmcnet_tpu_torch.models.weights import state_dict_from_checkpoint
 
 
-def checkpoint_name(model_prefix, representation, kind="checkpoint"):
-    return "_".join((model_prefix, representation.lower(),
-                     kind + ".pth.tar"))
+def checkpoint_name(model_prefix, representation):
+    return f"{model_prefix}_{representation.lower()}_checkpoint.pth.tar"
 
 
 def _cpu(obj):

@@ -28,7 +28,7 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.train.optimizers",
             "dmcnet_tpu_torch.train.checkpoints",
             "dmcnet_tpu_torch.cli.train", "dmcnet_tpu_torch.cli.test",
-            "dmcnet_tpu_torch.cli.combine",
+            "dmcnet_tpu_torch.cli.combine", "dmcnet_tpu_torch.cli.common",
             "dmcnet_tpu_torch.cli.train_options",
             "dmcnet_tpu_torch.utils.metrics_log"}
 

@@ -47,13 +47,18 @@ LR, WD = 1e-3, 0.05                # a weight decay large enough to show
 LR_CLS_MULT, LR_MSE_MULT = 0.5, 1.0  # distinct, so swapped groups show
 LOSSES = ["MSELoss", "SmoothL1Loss", "L1"]
 ESTIMATORS = ["DenseNetTiny", "ContextNetwork"]
+# every loss on one estimator, the other estimator with MSELoss: the loss is
+# a separate term of the step, and each case compiles a float64 JAX step
+STEP_CASES = [("DenseNetTiny", loss) for loss in LOSSES] \
+    + [("ContextNetwork", "MSELoss")]
 _METRICS = ("loss", "loss_cls", "loss_mse", "top1", "top5")
 
 
 
 @pytest.fixture(autouse=True, scope="module")
 def _two_torch_threads():
-    """Two intra-op threads for this module's torch work: the suite runs
+    """Two intra-op threads for the torch work of this module and of
+    tests/test_torch_cli.py, which imports this fixture: the suite runs
     several workers at once, and torch's spinning thread pools slow down
     severalfold when they outnumber the cores."""
     n = torch.get_num_threads()
@@ -169,9 +174,10 @@ STEP_FLAGS = (False, True, True)  # train_cls per step: the first frozen
 
 @functools.lru_cache(maxsize=None)
 def _jax_steps(arch_estimator):
-    """The JAX package's three train steps (float64) for every loss of
-    LOSSES: loss -> (metrics per step, params, batch_stats) as numpy.  The
-    three programs compile and run in threads (XLA releases the GIL)."""
+    """The JAX package's three train steps (float64) for every loss that
+    STEP_CASES pairs with `arch_estimator`: loss -> (metrics per step,
+    params, batch_stats) as numpy.  The programs compile and run in threads
+    (XLA releases the GIL)."""
     import concurrent.futures
 
     import jax
@@ -184,6 +190,7 @@ def _jax_steps(arch_estimator):
     )
 
     fmodel, params, stats = _flax_variables(arch_estimator)
+    losses = [loss for arch, loss in STEP_CASES if arch == arch_estimator]
     with jax.enable_x64(True):
         to64 = functools.partial(jax.tree.map, lambda a: jnp.asarray(
             a, jnp.float64))
@@ -198,7 +205,7 @@ def _jax_steps(arch_estimator):
         lowered = {loss: jax.jit(make_train_step(
             fmodel, opts, num_segments=S, lr_cls_w=1.0, lr_mse_w=1.0,
             loss_mse=loss, jit=False)).lower(state, *rest, flags[0])
-            for loss in LOSSES}
+            for loss in losses}
 
     def run(loss):
         step = lowered[loss].compile()
@@ -209,12 +216,33 @@ def _jax_steps(arch_estimator):
         return (metrics, jax.tree.map(np.asarray, st.params),
                 jax.tree.map(np.asarray, st.batch_stats))
 
-    with concurrent.futures.ThreadPoolExecutor(len(LOSSES)) as pool:
-        return dict(zip(LOSSES, pool.map(run, LOSSES)))
+    with concurrent.futures.ThreadPoolExecutor(len(losses)) as pool:
+        return dict(zip(losses, pool.map(run, losses)))
 
 
-@pytest.mark.parametrize("arch_estimator", ESTIMATORS)
 @pytest.mark.parametrize("loss_mse", LOSSES)
+def test_reconstruction_loss_matches_jax(loss_mse):
+    """Each reconstruction loss and its gradient against the JAX package's,
+    float64, on values spread across SmoothL1's |x| = 1 knee."""
+    import jax
+    import jax.numpy as jnp
+
+    from dmcnet_tpu.train.engine import reconstruction_loss
+
+    rng = np.random.default_rng(4)
+    pred, tgt = rng.normal(0, 1.5, (2, B * S, 2, H, W))
+    with jax.enable_x64(True):
+        want, want_grad = jax.value_and_grad(reconstruction_loss(loss_mse))(
+            jnp.asarray(pred), jnp.asarray(tgt))
+    p = torch.from_numpy(pred).requires_grad_()
+    got = tengine.reconstruction_loss(loss_mse)(p, torch.from_numpy(tgt))
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-12)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_grad),
+                               rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("arch_estimator,loss_mse", STEP_CASES)
 def test_train_steps_match_jax(arch_estimator, loss_mse):
     """Three steps, the first in the freeze phase, float64 on both sides:
     losses, accuracies, parameters and BN running statistics agree with the
