@@ -10,8 +10,10 @@ DenseNetTiny + ResNet-18 at 224x224, 51 classes, seeded random weights —
 over one 64-GOP chunk of synthetic 256x320, 12-frame GOPs (192 clips), and
 the input side — codec accumulation on the card and the data layer at the
 HMDB-51 recipe's width (examples/hmdb51_gen_flow/run.sh: batch 40, 3
-segments, mv, mv_minmaxnorm, input 224) through to logits, and dmcnet
-training at that width.  Phases:
+segments, mv, mv_minmaxnorm, input 224) through to logits, dmcnet
+training at that width, and I3D whole-video evaluation at the width of
+examples/i3d/eval.sh (250-frame clips at 224², DenseNetTiny, 51 classes).
+Phases:
 
   1. device      card name, count, power limit (nvidia-smi); TF32 off
   2. build       nvcc of ops/csrc/backtrace_warp.cu, with ptxas' report
@@ -57,14 +59,28 @@ training at that width.  Phases:
                  batch times, its checkpoint reloaded bit-equal and served
                  by DMCPredictor.from_checkpoint; B2's launches over the
                  phase
-  9. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+  9. i3d         the I3D evaluation recipe (examples/i3d/eval.sh: HMDB-51,
+                 flow+mp4, DenseNetTiny, clip 250, frame interval 1,
+                 mv_minmaxnorm, accumulate 0, ds_factor 16, batch 1, 224²)
+                 on clips of a VideoClipDataset over the synthetic GOPs:
+                 two 16-frame clips through i3d_augment_batch and the
+                 eval step, card against CPU (He-normal weights, so the
+                 logits see the clip); step, generator and backbone times
+                 at T = 250 in fp32, TF32 and bf16 with videos/s, peak
+                 memory and the FLOPs' share of the card's peak;
+                 cli.evaluate_video_i3d.evaluate() over 4 videos x 2
+                 rounds, its npz checked; a reference-layout .pth written,
+                 reloaded through --load-weights bit-equal, and an RGB
+                 model's 3-channel stem adapted; the launch counts of B1
+                 and B2 read around the path (no TPU kernel lies on it)
+ 10. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
 Any failure raises and exits non-zero.  The last lines are a `kernels` JSON
 object, a summary JSON object, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.  Needs no network; takes about 80 s on
-an H100.
+`{"ok": true, "device": {...}}`.  Needs no network; takes about 2 minutes
+on an H100.
 """
 
 from __future__ import annotations
@@ -117,6 +133,16 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 5e-4, 5e-6
 TRAIN_TIMED_STEPS = 5
 LONG_EPOCH_BATCHES = 8
+# The I3D evaluation recipe (examples/i3d/eval.sh), at full width.
+I3D_FLAGS = ["--dataset", "HMDB51", "--split", "1", "--clip-length", "250",
+             "--frame-interval", "1", "--modality", "flow+mp4",
+             "--arch-estimator", "DenseNetTiny", "--mv-minmaxnorm", "1",
+             "--accumulate", "0", "--ds_factor", "16", "--batch-size", "1",
+             "--input-size", str(SIZE)]
+I3D_T, I3D_CHECK_T, I3D_VIDEOS, I3D_TIMED = 250, 16, 4, 5
+# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) by the type
+# the I3D step computes in.
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # (cell, H, W, T) the kernels must mask: widths whose rows do not fill a
 # block's run of pixels, one and three cell rows, and T of one frame, one
 # pair and an odd count (the middle frame walks alone).
@@ -760,6 +786,341 @@ def _train_phase(torch, bt, dev, gops, workdir):
             "steady": steady, "b2_launches": b2}
 
 
+def synthetic_clip_dataset(pool, num_videos, clip_length, device, cache):
+    """A `VideoClipDataset` over synthetic GOPs instead of decoded video:
+    its own sampling, retries and item contract ((T, H, W, 7) uint8 clip,
+    label), with each GOP's raw MV and residual (accumulate 0) computed on
+    the card by `codec.accumulate.gop_mv_residual` and u8-encoded on the
+    host once, as `GopCache` encodes them (min-max bound 20).  Video v has
+    label v % NUM_CLASS and 21 GOPs; its GOP k is pool GOP (label + k) %
+    len(pool).  The flow channels are neutral (128), as without a flow
+    prefix."""
+    from dmcnet_tpu_torch.codec.accumulate import gop_mv_residual
+    from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
+    from dmcnet_tpu_torch.data.lists import VideoItem
+    from dmcnet_tpu_torch.data.sampling import RandomSampling
+    from dmcnet_tpu_torch.data.video_iter import VideoClipDataset
+
+    class SyntheticClipDataset(VideoClipDataset):
+        def _frame(self, item, frame_idx):
+            gop_index, gop_pos = self.gop_position(frame_idx)
+            k = (item.label + gop_index) % len(pool)
+            if k not in cache:
+                mv, res = gop_mv_residual(*pool[k], accumulate=False,
+                                          device=device)
+                cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
+                            _encode_u8(res.cpu().numpy()))
+            mv_u8, res_u8 = cache[k]
+            return np.concatenate([np.full((H, W, 2), 128, np.uint8),
+                                   mv_u8[gop_pos], res_u8[gop_pos]], axis=-1)
+
+    items = [VideoItem(f"synthetic/{v}.avi", v % NUM_CLASS, 21 * T)
+             for v in range(num_videos)]
+    return SyntheticClipDataset(items, RandomSampling(num=clip_length,
+                                                      seed=0),
+                                modality="flow+mp4", accumulate=False,
+                                mv_minmaxnorm=True, gop=T)
+
+
+def he_init(torch, net, seed):
+    """Seeded He-normal weights N(0, 2 / fan_in) for every convolution and
+    linear layer: under torch's default initialisation the ~20 ReLU layers
+    of I3D shrink the clip's signal until the logits barely depend on it,
+    and a card-vs-CPU check of the logits would see little."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d,
+                                torch.nn.Linear)):
+                w = mod.weight
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        * (2.0 / w[0].numel()) ** 0.5)
+    return net
+
+
+def i3d_flops(torch, net, x):
+    """Operations of one I3D forward on x, counted from the layer shapes:
+    2 x the multiply-adds of every convolution and linear layer (pools,
+    BN and activations are left out).  Returns (generator, backbone)."""
+    counts = {"gen": 0, "i3d": 0}
+    hooks = []
+
+    def hook(part):
+        def fn(mod, inp, out):
+            if isinstance(mod, torch.nn.Linear):
+                macs = out.numel() * mod.in_features
+            else:
+                macs = out.numel() * (mod.in_channels // mod.groups) \
+                    * int(np.prod(mod.kernel_size))
+            counts[part] += 2 * macs
+        return fn
+
+    for name, mod in net.named_modules():
+        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d,
+                            torch.nn.Linear)):
+            part = "gen" if name.startswith("gen_flow_model") else "i3d"
+            hooks.append(mod.register_forward_hook(hook(part)))
+    with torch.no_grad():
+        net(x, "flow+logit")
+    for h in hooks:
+        h.remove()
+    return counts["gen"], counts["i3d"]
+
+
+def i3d_phase(torch, bt, dev, gops):
+    """9. I3D whole-video evaluation at the recipe's width, with its files
+    in a temporary directory of the checkout."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(
+            __file__))) as workdir:
+        return _i3d_phase(torch, bt, dev, gops, workdir)
+
+
+def _i3d_phase(torch, bt, dev, gops, workdir):
+    import os
+
+    from dmcnet_tpu_torch.cli import evaluate_video_i3d as eval_cli
+    from dmcnet_tpu_torch.data.video_iter import (
+        I3DBatchAssembler,
+        i3d_augment_batch,
+    )
+    from dmcnet_tpu_torch.models.i3d import get_symbol
+    from dmcnet_tpu_torch.train import engine_i3d
+
+    phase("i3d")
+    t0 = time.perf_counter()
+    args = eval_cli.build_parser().parse_args(I3D_FLAGS + [
+        "--load-weights", os.path.join(workdir, "i3d.pth"),
+        "--data-root", workdir, "--video-prefix", workdir])
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = {}
+    torch.manual_seed(0)
+    net, conf = get_symbol("I3D", modality=args.modality,
+                           num_classes=NUM_CLASS,
+                           arch_estimator=args.arch_estimator,
+                           input_size=SIZE)
+    he_init(torch, net, 0)
+    torch.save(net.state_dict(), args.load_weights)
+    net = net.to(dev).eval()
+    aug = dict(modality=args.modality, ds_factor=args.ds_factor,
+               input_size=SIZE, mean=conf["mean"][0], std=conf["std"][0])
+    step = engine_i3d.make_i3d_eval_step(net)
+
+    # (a) two 16-frame clips, card against CPU, float32 with TF32 off
+    check_ds = synthetic_clip_dataset(pool, 2, I3D_CHECK_T, dev, cache)
+    raw = I3DBatchAssembler(check_ds, input_size=SIZE, is_train=False) \
+        .batch([0, 1])
+    got_b = i3d_augment_batch(raw, device=dev, **aug)
+    want_b = i3d_augment_batch(raw, device="cpu", **aug)
+    aug_err = max(float((got_b[k].cpu() - want_b[k]).abs().max())
+                  for k in ("flow", "mv", "residual"))
+    check(aug_err <= NORM_ATOL, f"i3d augment: card != CPU ({aug_err})")
+    cpu_net = get_symbol("I3D", modality=args.modality,
+                         num_classes=NUM_CLASS,
+                         arch_estimator=args.arch_estimator)[0]
+    cpu_net.load_state_dict(net.state_dict())
+    with torch.no_grad():
+        mv_res = torch.cat([got_b["mv"], got_b["residual"]], dim=1)
+        logits, gen = net(mv_res, "flow+logit")
+        c_logits, c_gen = cpu_net.eval()(mv_res.cpu(), "flow+logit")
+    got = step(got_b)
+    check(torch.equal(got["logits"], logits), "eval step != model forward")
+    logit_err = float((logits.cpu() - c_logits).abs().max())
+    gen_err = float((gen.cpu() - c_gen).abs().max())
+    check(tuple(logits.shape) == (2, NUM_CLASS)
+          and tuple(gen.shape) == (2, 2, I3D_CHECK_T, SIZE, SIZE),
+          "i3d output shapes")
+    spread = float((c_logits[0] - c_logits[1]).abs().max())
+    check(spread > 100 * LOGIT_ATOL, "the two clips' logits barely differ: "
+          "the check would not see the input")
+    check(torch.allclose(logits.cpu(), c_logits, rtol=LOGIT_RTOL,
+                         atol=LOGIT_ATOL), "i3d logits: card != CPU")
+    check(torch.allclose(gen.cpu(), c_gen, rtol=LOGIT_RTOL,
+                         atol=LOGIT_ATOL), "i3d gen_flow: card != CPU")
+    print(f"  two {I3D_CHECK_T}-frame clips at {SIZE}, card vs CPU (fp32, "
+          f"TF32 off): augment max |diff| {aug_err:.3g} (atol "
+          f"{NORM_ATOL}); logits {logit_err:.3g} (max |logit| "
+          f"{float(c_logits.abs().max()):.3g}, the clips' logits "
+          f"{spread:.3g} apart), gen_flow {gen_err:.3g} (max |gen_flow| "
+          f"{float(c_gen.abs().max()):.3g}); both rtol = atol = "
+          f"{LOGIT_RTOL}")
+
+    # (b) full-width times at T = I3D_T
+    full_ds = synthetic_clip_dataset(pool, 2, I3D_T, dev, cache)
+    asm = I3DBatchAssembler(full_ds, input_size=SIZE, is_train=False)
+    t1 = time.perf_counter()
+    raw = asm.batch([0])
+    assemble_s = time.perf_counter() - t1
+    check(raw["frames"].shape == (1, I3D_T, H, W, 7), "i3d clip shape")
+    batch = i3d_augment_batch(raw, device=dev, **aug)
+    mv_res = torch.cat([batch["mv"], batch["residual"]], dim=1)
+    with torch.no_grad():
+        gen = net.generate(mv_res)
+    gen_flops, i3d_flops_ = i3d_flops(torch, net, mv_res)
+    # the augment's two resampling contractions (W then H), B = 1
+    aug_flops = 2 * I3D_T * 7 * SIZE * (H * W + H * SIZE)
+    step_flops = gen_flops + i3d_flops_ + aug_flops
+    print(f"  set-up (model, synthetic datasets, card-vs-CPU check) "
+          f"{time.perf_counter() - t0:.2f} s; one {I3D_T}-frame clip "
+          f"assembled on the host in {assemble_s:.3f} s")
+    print(f"  FLOPs at T={I3D_T}, {SIZE}² (2 x multiply-adds of the convs "
+          f"and linears, from the layer shapes): generator "
+          f"{gen_flops / 1e9:.1f} G, I3D backbone {i3d_flops_ / 1e9:.1f} G, "
+          f"augment {aug_flops / 1e9:.1f} G, step {step_flops / 1e9:.1f} G")
+    timing = {}
+    for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
+                              ("bf16", False, True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        t_step = engine_i3d.make_i3d_eval_step(net, bf16=bf16)
+        ctx = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) \
+            if bf16 else (lambda: torch.autocast("cuda", enabled=False))
+
+        def generator():
+            with torch.no_grad(), ctx():
+                net.generate(mv_res)
+
+        def backbone():
+            with torch.no_grad(), ctx():
+                net.features_to_logits(gen)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step_ms = median_ms(lambda: t_step(i3d_augment_batch(
+            raw, device=dev, **aug)), I3D_TIMED, torch)
+        peak = torch.cuda.max_memory_allocated()
+        gen_ms = median_ms(generator, I3D_TIMED, torch)
+        i3d_ms = median_ms(backbone, I3D_TIMED, torch)
+        aug_ms = median_ms(lambda: i3d_augment_batch(raw, device=dev, **aug),
+                           I3D_TIMED, torch)
+        share = step_flops / (step_ms * 1e-3) / PEAK_FLOPS[label]
+        timing[label] = {"step_ms": step_ms, "generator_ms": gen_ms,
+                         "backbone_ms": i3d_ms, "augment_ms": aug_ms,
+                         "videos_per_s": 1e3 / step_ms,
+                         "peak_bytes": peak, "resident_bytes": base,
+                         "tflops": step_flops / (step_ms * 1e-3) / 1e12,
+                         "peak_share": share}
+        print(f"  {label}: eval step (host clip -> augment -> generator -> "
+              f"I3D -> logits) {step_ms:.3f} ms = {1e3 / step_ms:.3f} "
+              f"videos/s; augment (clip to the card, crop, normalize) "
+              f"{aug_ms:.3f} ms, generator {gen_ms:.3f} ms, I3D backbone "
+              f"{i3d_ms:.3f} ms (medians of {I3D_TIMED}, CUDA events); peak "
+              f"memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} resident "
+              "before the step); "
+              f"{step_flops / (step_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
+              f"{share * 100:.2f}% of the {label} peak "
+              f"({PEAK_FLOPS[label] / 1e12:.0f} TFLOP/s)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    h2d_ms = median_ms(lambda: torch.from_numpy(raw["frames"]).to(dev),
+                       I3D_TIMED, torch)
+    print(f"  of the augment: the {raw['frames'].nbytes / 1e6:.1f} MB u8 clip "
+          f"to the card (pageable) {h2d_ms:.3f} ms")
+    del gen, mv_res, batch
+
+    # (c) evaluate() over I3D_VIDEOS videos x 2 rounds, batch 1, its npz
+    args.num_sample = 2
+    args.score_file = os.path.join(workdir, "i3d_eval")
+    rounds = []
+    make_step = eval_cli.make_i3d_eval_step
+
+    def recording_step(model, **kw):
+        inner = make_step(model, **kw)
+
+        def fn(b):
+            out = inner(b)
+            rounds.append((out["logits"].double().cpu().numpy(),
+                           out["label"].cpu().numpy()))
+            return out
+        return fn
+
+    eval_cli.make_i3d_eval_step = recording_step
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+    t1 = time.perf_counter()
+    try:
+        scores, labels, top1 = eval_cli.evaluate(
+            args, synthetic_clip_dataset(pool, I3D_VIDEOS, I3D_T, dev,
+                                         cache), device=dev)
+    finally:
+        eval_cli.make_i3d_eval_step = make_step
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t1
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    with np.load(args.score_file + ".npz") as npz:
+        check(sorted(npz.files) == ["labels", "scores", "top1"],
+              f"npz keys {npz.files}")
+        check(npz["scores"].shape == (I3D_VIDEOS, NUM_CLASS)
+              and npz["scores"].dtype == np.float64, "npz scores")
+        check(np.array_equal(npz["scores"], scores)
+              and np.array_equal(npz["labels"], labels)
+              and float(npz["top1"]) == top1, "npz differs from evaluate()")
+    check(len(rounds) == 2 * I3D_VIDEOS, f"{len(rounds)} eval steps")
+    per_round = np.concatenate([r[0] for r in rounds]).reshape(
+        2, I3D_VIDEOS, NUM_CLASS)
+    check(np.array_equal(scores, (per_round[0] + per_round[1]) / 2),
+          "a video's score is not the mean of its two rounds' logits")
+    check(list(labels) == [v % NUM_CLASS for v in range(I3D_VIDEOS)],
+          "labels")
+    want_top1 = 100.0 * float(np.mean(scores.argmax(1) == labels))
+    check(top1 == want_top1, f"top-1 {top1} != {want_top1} from the scores")
+    check(bool(np.isfinite(scores).all()), "non-finite scores")
+    print(f"  evaluate(): {I3D_VIDEOS} videos x 2 rounds at T={I3D_T} in "
+          f"{eval_s:.2f} s (host clock, clip assembly included); npz "
+          f"{{scores {scores.shape} float64, labels, top1}}; each score the "
+          f"mean of its two rounds' logits; top-1 {top1:.1f}% agrees with "
+          f"the scores; launches on the I3D path {launches} (no TPU kernel "
+          "lies on it)")
+
+    # (d) a reference-layout .pth through --load-weights, bit-equal logits;
+    # an RGB model's 3-channel stem adapted
+    with torch.no_grad():
+        want = net(torch.cat([got_b["mv"], got_b["residual"]], dim=1),
+                   "flow+logit")[0]
+    ref_path = os.path.join(workdir, "hmdb_1_ep-0010.pth")
+    torch.save({"epoch": 10, "state_dict": {
+        "module." + k: v.cpu() for k, v in net.state_dict().items()}},
+        ref_path)
+    net2 = get_symbol("I3D", modality=args.modality, num_classes=NUM_CLASS,
+                      arch_estimator=args.arch_estimator)[0]
+    eval_cli.load_weights(net2, ref_path, args.modality)
+    net2 = net2.to(dev).eval()
+    with torch.no_grad():
+        again = net2(torch.cat([got_b["mv"], got_b["residual"]], dim=1),
+                     "flow+logit")[0]
+    check(torch.equal(again, want), "reloaded .pth logits differ")
+    torch.manual_seed(1)
+    rgb = he_init(torch, get_symbol(
+        "I3D", modality="rgb", num_classes=NUM_CLASS,
+        arch_estimator=args.arch_estimator)[0], 1)
+    rgb_path = os.path.join(workdir, "i3d_rgb.pth")
+    torch.save({"state_dict": rgb.state_dict()}, rgb_path)
+    eval_cli.load_weights(net2, rgb_path, args.modality)
+    stem = net2.conv3d_1a_7x7.conv3d.weight.cpu()
+    rgb_stem = rgb.conv3d_1a_7x7.conv3d.weight
+    check(tuple(stem.shape) == (64, 2, 7, 7, 7)
+          and torch.equal(stem, rgb_stem.mean(1, keepdim=True)
+                          .expand(-1, 2, -1, -1, -1)),
+          "3-channel stem not channel-meaned")
+    print("  reference-layout .pth (module. prefix) reloaded through "
+          "--load-weights: logits bit-equal on the card; an RGB model's "
+          "3-channel stem channel-meaned onto the 2-channel one")
+    print(f"  i3d phase {time.perf_counter() - t0:.1f} s")
+    return {"timing": timing, "flops": {"generator": gen_flops,
+                                        "backbone": i3d_flops_,
+                                        "augment": aug_flops},
+            "check": {"augment": aug_err, "logits": logit_err,
+                      "gen_flow": gen_err},
+            "h2d_ms": h2d_ms, "clip_assemble_s": assemble_s,
+            "evaluate_s": eval_s, "phase_s": time.perf_counter() - t0,
+            "launches": launches}
+
+
 def main():
     import torch
 
@@ -1005,8 +1366,9 @@ def main():
     codec_times = codec_phase(torch, bt, dev, gops)
     data = data_phase(torch, bt, dev, gops, pred, rng)
     train = train_phase(torch, bt, dev, gops)
+    i3d = i3d_phase(torch, bt, dev, gops)
 
-    # 9. videos --------------------------------------------------------------
+    # 10. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -1082,6 +1444,7 @@ def main():
                       "launch_floor_ms": b2["floor_ms"],
                       "codec_ms": codec_times,
                       "data_ms": data["times"], "train": train,
+                      "i3d": i3d,
                       "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,16 +11,18 @@ package's module names so every counterpart can be found:
   ops/backtrace   GOP back-trace: CUDA kernels B1 and B2
                   (ops/csrc/backtrace_warp.cu), their plain PyTorch
                   versions, and `gop_mv_residual_cuda`
-  data/           lists, TSN sampling, the CoViAR dataset and its batches,
-                  crops and normalization on a device, the batch loader
+  data/           lists, TSN and I3D clip sampling, the CoViAR dataset and
+                  its batches, the I3D clip dataset and its batches, crops
+                  and normalization on a device, the batch loader
   models/         estimators (ContextNetwork(-Att), DenseNet family, Tiny
-                  early fusion), ResNet-18/34, DMCNet, PlainTSN, weight
-                  bridge
+                  early fusion), ResNet-18/34, DMCNet, PlainTSN, the GAN
+                  discriminators, I3D, weight bridge
   train/          Adam parameter groups, train/eval steps with the freeze
-                  phase, meters, checkpoints
+                  phase, the I3D eval step, meters, checkpoints
   utils/          JSON-lines metrics log
   serving         DMCPredictor: compressed video in, action scores out
-  cli/            serve (batch / stdin scoring), train, test, combine
+  cli/            serve (batch / stdin scoring), train, test, combine,
+                  evaluate_video_i3d
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 CUDA and without an explicit device they raise.

@@ -1,6 +1,7 @@
-"""Helpers shared by the `train`, `test` and `serve` commands: the class
-count of a dataset, the torch device of `--device` / `--gpus`, the refusal
-of flags whose slice is not ported yet, and the reference score dump."""
+"""Helpers shared by the `train`, `test`, `serve` and `evaluate_video_i3d`
+commands: the class count of a dataset, the torch device of `--device` /
+`--gpus`, the refusal of flags whose slice is not ported yet, and the
+reference score dump."""
 
 import numpy as np
 import torch
@@ -20,7 +21,7 @@ def device_for(args):
     when CUDA is unavailable."""
     if args.device.startswith("cuda"):
         resolve_device()
-        if args.gpus:
+        if getattr(args, "gpus", None):
             return torch.device(f"cuda:{args.gpus[0]}")
     return torch.device(args.device)
 

@@ -2,8 +2,9 @@
 `dmcnet_tpu/data/color.py`): BGR<->HLS with OpenCV's conventions (H in
 [0,180], L/S in [0,255]) and the reference's HLS jitter `color_aug`
 (code/dmcnet/transforms.py:15-33: random shifts of H/L/S with upper clamps
-H<=180, L,S<=255, lower clamp 0), which the iframe representation uses.  The
-I3D jitters wait for the I3D data path.
+H<=180, L,S<=255, lower clamp 0), which the iframe representation uses, and
+the I3D `RandomRGB` / `RandomHLS` (code/dmcnet_I3D/data/
+image_transforms.py:214-259) of the rgb/I train clips.
 """
 
 from __future__ import annotations
@@ -69,4 +70,23 @@ def color_aug(img, rng, random_h=36, random_l=50, random_s=50):
     hls[..., 2] = np.minimum(hls[..., 2] + (rng.random() * 2 - 1) * random_s,
                              255)
     hls = np.maximum(hls, 0)
+    return hls_to_bgr(hls)
+
+
+def random_rgb(img, rng, vars_=(10, 10, 10)):
+    """Independent per-channel shifts (image_transforms.py:214-229);
+    img uint8 RGB or BGR."""
+    out = img.astype(np.int32)
+    for c, v in enumerate(vars_):
+        out[..., c] += int(rng.integers(-v, v + 1))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def random_hls(img, rng, vars_=(15, 35, 25)):
+    """HLS shifts with integer deltas (image_transforms.py:231-259)."""
+    hls = bgr_to_hls(img)
+    for c, v in enumerate(vars_):
+        hls[..., c] += int(rng.integers(-v, v + 1))
+    hls[..., 0] = np.clip(hls[..., 0], 0, 180)
+    hls[..., 1:] = np.clip(hls[..., 1:], 0, 255)
     return hls_to_bgr(hls)

@@ -3,8 +3,10 @@
 dmcnet list format (reference code/dmcnet/dataset.py:116-128): lines of
 `<video> <dummy> <label>`, video paths made absolute against data_root with
 extension swapped to .mp4, and the usable frame count min'ed with the number
-of precomputed flow images.  (The I3D list format waits for the I3D data
-path.)
+of precomputed flow images.
+
+I3D list format (code/dmcnet_I3D/data/video_iterator.py:509): lines of
+`<id> <label> <subpath>`.
 """
 
 from __future__ import annotations
@@ -54,3 +56,16 @@ def load_video_list(list_path, data_root, flow_root=None,
                     n = min(n, len(os.listdir(flow_path)) // 3)
             items.append(VideoItem(video_path, int(label), int(n), flow_path))
     return items
+
+
+def load_i3d_list(list_path):
+    """Parse an I3D-format list -> [(id, label, subpath)]."""
+    out = []
+    with open(list_path) as f:
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            vid, label, subpath = line.split()
+            out.append((int(vid), int(label), subpath))
+    return out

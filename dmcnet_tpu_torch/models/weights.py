@@ -7,8 +7,14 @@ variables as nested dicts of numpy arrays and returns the port's
 conv kernels (kh, kw, I, O) -> OIHW, dense kernels (I, O) -> (O, I), BN
 scale/bias/mean/var -> weight/bias/running_mean/running_var.  The port's
 module names are the reference torch keys, so the result, and a reference
-`.pth.tar`, load with `load_state_dict` directly.  The GAN discriminator is
-not ported yet.
+`.pth.tar`, load with `load_state_dict` directly.  It covers DMCNet,
+PlainTSN and I3D with its generator and discriminator: conv3d kernels (kt,
+kh, kw, I, O) -> (O, I, kt, kh, kw), and the discriminator's `adv_layer`, a
+Dense over the NHWC-flattened map in flax, reordered to torch's NCHW
+flattening.
+
+`load_reference_i3d` partially loads a reference I3D `.pth` into an `I3D`,
+the counterpart of `dmcnet_tpu/models/import_torch_i3d.py:135-150`.
 """
 
 from __future__ import annotations
@@ -92,17 +98,93 @@ def _estimator(out, params, bstats, prefix):
             raise KeyError(f"unknown gen_flow_model module {name!r}")
 
 
+def _flattened_linear_w(kernel, c_last):
+    """flax Dense over an NHWC-flattened (h, w, c) map -> torch Linear
+    weight over the NCHW-flattened one (inverse of
+    `dmcnet_tpu/models/import_torch.py:38-48`)."""
+    kernel = np.asarray(kernel)
+    flat, o = kernel.shape
+    hw = int(round((flat // c_last) ** 0.5))
+    if c_last * hw * hw != flat:
+        raise ValueError(f"adv_layer kernel {kernel.shape} is not a square "
+                         f"map of {c_last} channels")
+    w = kernel.reshape(hw, hw, c_last, o).transpose(3, 2, 0, 1)
+    return w.reshape(o, c_last * hw * hw)
+
+
+def _discriminator(out, params, bstats, prefix):
+    """`stage{s}_down` / `stage{s}_deep{i}` -> `discriminator_block_{s+1}`
+    / `discriminator_block_{s+1}_{i+1}` (conv `.0`, BN `.3`), `adv_layer`."""
+    blocks = {}
+    for name in params:
+        m = re.fullmatch(r"stage(\d+)_(?:down|deep(\d+))", name)
+        if m:
+            blocks[name] = (int(m.group(1)), int(m.group(2) or 0))
+        elif name != "adv_layer":
+            raise KeyError(f"unknown discriminator module {name!r}")
+    last = max(blocks, key=blocks.get)
+    c_last = np.asarray(params[last]["conv"]["kernel"]).shape[-1]
+    for name, (stage, deep) in blocks.items():
+        key = f"{prefix}.discriminator_block_{stage + 1}" + (
+            f"_{deep + 1}" if deep else "")
+        node = params[name]
+        _conv(out, f"{key}.0", node["conv"])
+        if "bn" in node:
+            _bn(out, f"{key}.3", node["bn"], bstats.get(name, {}).get("bn",
+                                                                      {}))
+    adv = params["adv_layer"]
+    out[f"{prefix}.adv_layer.weight"] = _t(_flattened_linear_w(adv["kernel"],
+                                                               c_last))
+    out[f"{prefix}.adv_layer.bias"] = _t(adv["bias"])
+
+
+def _unit3d(out, key, pnode, bnode):
+    conv = pnode["conv3d"]
+    out[key + ".conv3d.weight"] = _t(np.transpose(np.asarray(conv["kernel"]),
+                                                  (4, 3, 0, 1, 2)))
+    if "bias" in conv:
+        out[key + ".conv3d.bias"] = _t(conv["bias"])
+    if "batch3d" in pnode:
+        _bn(out, key + ".batch3d", pnode["batch3d"], bnode.get("batch3d", {}))
+
+
+# flax Mixed branch names -> the reference's Sequential positions
+_I3D_BRANCHES = {"branch_0": "branch_0", "branch_1a": "branch_1.0",
+                 "branch_1b": "branch_1.1", "branch_2a": "branch_2.0",
+                 "branch_2b": "branch_2.1", "branch_3b": "branch_3.1"}
+
+
+def _i3d_module(out, top, node, bnode):
+    if top.startswith("conv3d_"):
+        _unit3d(out, top, node, bnode)
+    elif top.startswith("mixed_"):
+        for branch, sub in node.items():
+            if branch not in _I3D_BRANCHES:
+                raise KeyError(f"unknown I3D branch {top}.{branch}")
+            _unit3d(out, f"{top}.{_I3D_BRANCHES[branch]}", sub,
+                    bnode.get(branch, {}))
+    elif top == "classifier":
+        out["classifier.weight"] = _t(np.asarray(node["kernel"]).T)
+        out["classifier.bias"] = _t(node["bias"])
+    else:
+        raise KeyError(f"module {top!r} is not ported")
+
+
 def state_dict_from_flax(params, batch_stats):
     """JAX-package {params, batch_stats} (nested dicts of arrays) of a
-    DMCNet or PlainTSN -> the port's `state_dict` (float32 CPU tensors)."""
+    DMCNet, PlainTSN or I3D -> the port's `state_dict` (float32 CPU
+    tensors)."""
     out = {}
     for top, node in params.items():
+        bnode = batch_stats.get(top, {})
         if top == "base_model":
-            _resnet(out, node, batch_stats.get(top, {}), top)
+            _resnet(out, node, bnode, top)
         elif top == "gen_flow_model":
-            _estimator(out, node, batch_stats.get(top, {}), top)
+            _estimator(out, node, bnode, top)
+        elif top == "discriminator":
+            _discriminator(out, node, bnode, top)
         else:
-            raise KeyError(f"module {top!r} is not ported")
+            _i3d_module(out, top, node, bnode)
     return out
 
 
@@ -113,3 +195,41 @@ def state_dict_from_checkpoint(obj):
     sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
     return {(k[len("module."):] if k.startswith("module.") else k): v
             for k, v in sd.items()}
+
+
+# Top-level modules of the reference I3D: a checkpoint key under one of them
+# that the model lacks, or holds at another shape, is "shape-missed"; any
+# other key is "skipped" (the counts of `load_i3d_pth`).
+_I3D_TOPS = re.compile(r"(conv3d_\w+|mixed_\w+|classifier|gen_flow_model|"
+                       r"discriminator)\.")
+
+
+def load_reference_i3d(path_or_state_dict, model, modality):
+    """Partial load of a reference I3D checkpoint (a path to a torch file,
+    or a state dict) into `model`, as `load_i3d_pth` does (reference
+    train/model.py:41-65): the `module.` prefix stripped, a stem of another
+    input-channel count (3-channel RGB on a 2-channel flow model)
+    channel-meaned and broadcast, keys of another shape left out, loaded
+    non-strictly.  Returns the report "imported=N skipped=N
+    shape-missed=N": parameters (not BN statistics) the checkpoint names,
+    keys of no reference module, keys the model lacks or holds at another
+    shape."""
+    obj = path_or_state_dict
+    if not isinstance(obj, dict):
+        obj = torch.load(obj, map_location="cpu", weights_only=True)
+    sd = {k: v for k, v in state_dict_from_checkpoint(obj).items()
+          if not k.endswith("num_batches_tracked")}
+    in_ch = 2 if modality in ("flow", "mv", "flow+mp4") else 3
+    stem = "conv3d_1a_7x7.conv3d.weight"
+    if stem in sd and sd[stem].ndim == 5 and sd[stem].shape[1] != in_ch:
+        w = sd[stem].float().mean(dim=1, keepdim=True)
+        sd[stem] = w.expand(-1, in_ch, -1, -1, -1).contiguous()
+    own = model.state_dict()
+    known = {k for k in sd if _I3D_TOPS.match(k)}
+    keep = {k: v for k, v in sd.items()
+            if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    model.load_state_dict(keep, strict=False)
+    imported = sum(1 for k in known if not k.endswith(("running_mean",
+                                                        "running_var")))
+    return (f"imported={imported} skipped={len(sd) - len(known)} "
+            f"shape-missed={len(known - set(keep))}")

@@ -30,7 +30,13 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.cli.train", "dmcnet_tpu_torch.cli.test",
             "dmcnet_tpu_torch.cli.combine", "dmcnet_tpu_torch.cli.common",
             "dmcnet_tpu_torch.cli.train_options",
-            "dmcnet_tpu_torch.utils.metrics_log"}
+            "dmcnet_tpu_torch.utils.metrics_log",
+            "dmcnet_tpu_torch.models.i3d",
+            "dmcnet_tpu_torch.models.discriminators",
+            "dmcnet_tpu_torch.data.video_iter",
+            "dmcnet_tpu_torch.data.iterator_factory",
+            "dmcnet_tpu_torch.train.engine_i3d",
+            "dmcnet_tpu_torch.cli.evaluate_video_i3d"}
 
 
 def test_port_imports_no_jax():
