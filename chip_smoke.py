@@ -960,24 +960,32 @@ def _i3d_phase(torch, bt, dev, gops, workdir):
     with torch.no_grad():
         gen = net.generate(mv_res)
     gen_flops, i3d_flops_ = i3d_flops(torch, net, mv_res)
-    # the augment's two resampling contractions (W then H), B = 1
+    # the model's operations are the step's useful work; the augment's two
+    # resampling contractions (W then H, B = 1) compute a centre crop, a
+    # gather, and are counted apart as overhead
     aug_flops = 2 * I3D_T * 7 * SIZE * (H * W + H * SIZE)
-    step_flops = gen_flops + i3d_flops_ + aug_flops
+    step_flops = gen_flops + i3d_flops_
     print(f"  set-up (model, synthetic datasets, card-vs-CPU check) "
           f"{time.perf_counter() - t0:.2f} s; one {I3D_T}-frame clip "
           f"assembled on the host in {assemble_s:.3f} s")
     print(f"  FLOPs at T={I3D_T}, {SIZE}² (2 x multiply-adds of the convs "
           f"and linears, from the layer shapes): generator "
           f"{gen_flops / 1e9:.1f} G, I3D backbone {i3d_flops_ / 1e9:.1f} G, "
-          f"augment {aug_flops / 1e9:.1f} G, step {step_flops / 1e9:.1f} G")
+          f"model (the step's useful work) {step_flops / 1e9:.1f} G; the "
+          f"augment's resampling contractions {aug_flops / 1e9:.1f} G more, "
+          "not counted in the shares below")
     timing = {}
     for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
                               ("bf16", False, True)):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
-        t_step = engine_i3d.make_i3d_eval_step(net, bf16=bf16)
         ctx = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) \
             if bf16 else (lambda: torch.autocast("cuda", enabled=False))
+
+        def t_step():
+            b = i3d_augment_batch(raw, device=dev, **aug)
+            with ctx():
+                step(b)
 
         def generator():
             with torch.no_grad(), ctx():
@@ -990,8 +998,7 @@ def _i3d_phase(torch, bt, dev, gops, workdir):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        step_ms = median_ms(lambda: t_step(i3d_augment_batch(
-            raw, device=dev, **aug)), I3D_TIMED, torch)
+        step_ms = median_ms(t_step, I3D_TIMED, torch)
         peak = torch.cuda.max_memory_allocated()
         gen_ms = median_ms(generator, I3D_TIMED, torch)
         i3d_ms = median_ms(backbone, I3D_TIMED, torch)
@@ -1011,7 +1018,7 @@ def _i3d_phase(torch, bt, dev, gops, workdir):
               f"{i3d_ms:.3f} ms (medians of {I3D_TIMED}, CUDA events); peak "
               f"memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} resident "
               "before the step); "
-              f"{step_flops / (step_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
+              f"model {step_flops / (step_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
               f"{share * 100:.2f}% of the {label} peak "
               f"({PEAK_FLOPS[label] / 1e12:.0f} TFLOP/s)")
     torch.backends.cudnn.allow_tf32 = False
@@ -1028,8 +1035,8 @@ def _i3d_phase(torch, bt, dev, gops, workdir):
     rounds = []
     make_step = eval_cli.make_i3d_eval_step
 
-    def recording_step(model, **kw):
-        inner = make_step(model, **kw)
+    def recording_step(model):
+        inner = make_step(model)
 
         def fn(b):
             out = inner(b)

@@ -94,7 +94,10 @@ def is_jax_checkpoint(path):
 
 
 def load_weights(net, path, modality):
-    """--load-weights into `net`: torch files only."""
+    """--load-weights into `net`: torch files only.  Every parameter and BN
+    statistic of `net` must come from the file (a 3-channel stem adapted to
+    a 2-channel model counts), as the JAX command's checkpoint restore
+    demands; a file that leaves any of them at its initialisation raises."""
     refuse_unported([
         (os.path.isdir(path), "--load-weights <orbax directory>",
          "A item 2 (checkpoint formats)"),
@@ -102,10 +105,14 @@ def load_weights(net, path, modality):
          "--load-weights <JAX msgpack checkpoint>",
          "A item 2 (checkpoint formats)"),
     ])
-    report = load_reference_i3d(path, net, modality)
+    report, unfilled = load_reference_i3d(path, net, modality)
     print(f"loaded --load-weights {path}: {report}")
-    if report.startswith("imported=0 "):
-        raise SystemExit(f"--load-weights {path} holds no I3D weights")
+    if unfilled:
+        shown = ", ".join(unfilled[:8]) + (", ..." if len(unfilled) > 8
+                                            else "")
+        raise SystemExit(f"--load-weights {path} does not fill "
+                         f"{len(unfilled)} keys of the model (missing or of "
+                         f"another shape): {shown}")
 
 
 def evaluate(args, ds, *, device):
@@ -132,13 +139,6 @@ def evaluate(args, ds, *, device):
     aug = dict(modality=args.modality, ds_factor=args.ds_factor,
                input_size=args.input_size, mean=input_conf["mean"][0],
                std=input_conf["std"][0], device=device)
-
-    # The JAX evaluator draws one clip of video 0 to initialise its model,
-    # and pads a ragged last batch by repeating its last video (one compiled
-    # shape).  Both are drawn here too, so that the two packages score the
-    # same frames from the same seeds; the padding rows never reach the
-    # model.
-    asm.batch([0])
     avg_scores = np.zeros((len(ds), num_classes), np.float64)
     labels = np.zeros((len(ds),), np.int64)
     t0 = time.time()
@@ -146,10 +146,7 @@ def evaluate(args, ds, *, device):
     for _ in range(args.num_sample):
         for start in range(0, len(ds), args.batch_size):
             idx = list(range(start, min(start + args.batch_size, len(ds))))
-            raw = asm.batch(idx + [idx[-1]] * (args.batch_size - len(idx)))
-            b = i3d_augment_batch({k: v[:len(idx)] for k, v in raw.items()},
-                                  **aug)
-            m = step(b)
+            m = step(i3d_augment_batch(asm.batch(idx), **aug))
             avg_scores[idx] += m["logits"].cpu().numpy()
             labels[idx] = m["label"].cpu().numpy()
             done += len(idx)

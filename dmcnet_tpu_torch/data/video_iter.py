@@ -257,8 +257,7 @@ class I3DBatchAssembler:
 
 
 def i3d_augment_batch(batch, modality="flow+mp4", ds_factor=0,
-                      upsample_interp=False, input_size=224, mean=0.5,
-                      std=0.5, device=None):
+                      input_size=224, mean=0.5, std=0.5, device=None):
     """Crop/flip, /255 and (x - mean) / std on ALL channels (the intended
     semantics of the reference Normalize; its 3-channel zip is quirk (c) of
     SURVEY.md §2.5), flow blockify for flow+mp4, on `device` (CUDA unless
@@ -282,6 +281,6 @@ def i3d_augment_batch(batch, modality="flow+mp4", ds_factor=0,
         return {"x": ncthw(x), "label": label}
     flow = x[:, :, 0:2]
     if ds_factor:
-        flow = T.blockify_flow(flow, ds_factor, upsample_interp)
+        flow = T.blockify_flow(flow, ds_factor)
     return {"flow": ncthw(flow), "mv": ncthw(x[:, :, 2:4]),
             "residual": ncthw(x[:, :, 4:7]), "label": label}

@@ -6,8 +6,9 @@ reference's NCTHW layout (B, C, T, H, W):
     in front of an unpadded `Conv3d`; reference Unit3Dpy, i3d.py:328-403);
   * max pools with TF-SAME padding (`layers.max_pool3d_same`);
   * stem 7x7x7/s2 -> pools -> mixed_3b..5c -> AvgPool3d((2,7,7), s1) ->
-    conv3d_0c_1x1 (1024 -> 400, bias, no BN) -> mean over time -> dropout ->
-    Linear(400, C) (i3d.py:502-560);
+    conv3d_0c_1x1 (1024 -> 400, bias, no BN) -> mean over time ->
+    Linear(400, C) (i3d.py:502-560); the reference's dropout before the
+    classifier is a no-op in eval and comes with the I3D training slice;
   * the per-frame DMC generator on (B*T, 5, H, W), which in NCTHW needs a
     permute each way (i3d.py:568-571);
   * `node` multiplexing: 'logit' | 'flow+logit' | 'gen_flow' | 'D'
@@ -117,8 +118,8 @@ class I3D(nn.Module):
     (`arch_estimator`) and GAN discriminator (`arch_d`, built for frames of
     `input_size`)."""
 
-    def __init__(self, num_classes, modality="rgb", dropout_prob=0.0,
-                 arch_estimator=None, arch_d=None, input_size=224):
+    def __init__(self, num_classes, modality="rgb", arch_estimator=None,
+                 arch_d=None, input_size=224):
         super().__init__()
         self.modality = modality
         if arch_estimator:
@@ -139,7 +140,6 @@ class I3D(nn.Module):
             c = mixed_width(plan)
         self.conv3d_0c_1x1 = Unit3D(c, 400, activation=None, use_bias=True,
                                     use_bn=False)
-        self.dropout = nn.Dropout(dropout_prob)
         self.classifier = nn.Linear(400, num_classes)
 
     @property
@@ -168,7 +168,7 @@ class I3D(nn.Module):
         x = self.conv3d_0c_1x1(x)
         # squeeze space, mean over time (Unit3Dpy, i3d.py:398-402)
         x = x.squeeze(4).squeeze(3).mean(2)
-        return self.classifier(self.dropout(x))
+        return self.classifier(x)
 
     def forward(self, inp, node="logit", detach=False):
         if node == "D":
@@ -184,12 +184,12 @@ class I3D(nn.Module):
 
 
 def get_symbol(name, modality="rgb", num_classes=51, arch_estimator=None,
-               arch_d=None, dropout_prob=0.0, input_size=224):
+               arch_d=None, input_size=224):
     """Factory and input config (reference network/symbol_builder.py:12-25,
     network/config.py:10-27: I3D mean = std = 0.5)."""
     if name.upper() != "I3D":
         raise ValueError(f"unknown network {name!r}")
     net = I3D(num_classes=num_classes, modality=modality,
-              dropout_prob=dropout_prob, arch_estimator=arch_estimator,
-              arch_d=arch_d, input_size=input_size)
+              arch_estimator=arch_estimator, arch_d=arch_d,
+              input_size=input_size)
     return net, {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5]}

@@ -210,10 +210,12 @@ def load_reference_i3d(path_or_state_dict, model, modality):
     train/model.py:41-65): the `module.` prefix stripped, a stem of another
     input-channel count (3-channel RGB on a 2-channel flow model)
     channel-meaned and broadcast, keys of another shape left out, loaded
-    non-strictly.  Returns the report "imported=N skipped=N
-    shape-missed=N": parameters (not BN statistics) the checkpoint names,
-    keys of no reference module, keys the model lacks or holds at another
-    shape."""
+    non-strictly.  Returns (report, unfilled).  The report is "imported=N
+    skipped=N shape-missed=N": parameters (not BN statistics) the
+    checkpoint names, keys of no reference module, keys the model lacks or
+    holds at another shape.  `unfilled` lists, sorted, the model's keys
+    (BN batch counters aside) that the checkpoint did not fill, so that
+    they keep their initialisation."""
     obj = path_or_state_dict
     if not isinstance(obj, dict):
         obj = torch.load(obj, map_location="cpu", weights_only=True)
@@ -231,5 +233,7 @@ def load_reference_i3d(path_or_state_dict, model, modality):
     model.load_state_dict(keep, strict=False)
     imported = sum(1 for k in known if not k.endswith(("running_mean",
                                                         "running_var")))
+    unfilled = sorted(k for k in own if k not in keep
+                      and not k.endswith("num_batches_tracked"))
     return (f"imported={imported} skipped={len(sd) - len(known)} "
-            f"shape-missed={len(known - set(keep))}")
+            f"shape-missed={len(known - set(keep))}"), unfilled

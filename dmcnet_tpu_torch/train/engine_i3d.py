@@ -8,23 +8,20 @@ from __future__ import annotations
 
 import torch
 
-from dmcnet_tpu_torch.train.engine import _autocast, topk_correct
+from dmcnet_tpu_torch.train.engine import topk_correct
 
 
-def make_i3d_eval_step(model, bf16=False):
+def make_i3d_eval_step(model):
     """step(batch) -> {logits, label, top1, top5}: the `flow+logit`
     forward of `model` (an `I3D` with a generator) in eval mode on the
     batch's [mv, residual] channels (NCTHW), as
-    `dmcnet_tpu/train/engine_i3d.py:413-426`.  `bf16` runs convolutions and
-    matmuls under bfloat16 autocast; logits come back float32."""
+    `dmcnet_tpu/train/engine_i3d.py:413-426`."""
 
     @torch.no_grad()
     def step(batch):
         model.eval()
         mv_res = torch.cat([batch["mv"], batch["residual"]], dim=1)
-        with _autocast(mv_res.device, bf16):
-            logits, _ = model(mv_res, "flow+logit")
-        logits = logits.float()
+        logits, _ = model(mv_res, "flow+logit")
         top1, top5 = topk_correct(logits, batch["label"], (1, 5))
         return {"logits": logits, "label": batch["label"], "top1": top1,
                 "top5": top5}

@@ -292,11 +292,12 @@ def test_load_reference_i3d_matches_load_i3d_pth(tmp_path):
 
     _, params, bstats = _flax_i3d()
     net = _loaded_port_i3d()
-    report = load_reference_i3d(str(path), net, "flow+mp4")
+    report, unfilled = load_reference_i3d(str(path), net, "flow+mp4")
     j_params, j_bstats, j_report = load_i3d_pth(str(path), params, bstats,
                                                  modality="flow+mp4")
     assert report == j_report
     assert report.endswith("skipped=1 shape-missed=2")
+    assert unfilled == ["classifier.bias", "classifier.weight"]
     want = state_dict_from_flax(j_params, j_bstats)
     got = net.state_dict()
     stem = got["conv3d_1a_7x7.conv3d.weight"]

@@ -16,7 +16,9 @@ are held at rtol 1e-4, atol 2e-4 (measured worst |diff| on this CPU: 6.0e-6
 of up to 7.7); labels and top-1 must be equal.  The JAX package reads
 flow+mp4 clips at GOP position 0 (zero MV and residual, a fault the port
 fixes): its dataset gets the reference's positions through
-tests/test_torch_i3d_data.py `fix_jax_gop_positions`.
+tests/test_torch_i3d_data.py `fix_jax_gop_positions`.  The JAX command
+draws clips the port's does not (its model-init clip and the padding of a
+ragged batch): the port's sampler makes those draws too (`JaxDrawOrder`).
 """
 
 import os
@@ -29,6 +31,7 @@ from test_torch_i3d_data import fix_jax_gop_positions, panning_canvas
 from test_torch_train import _two_torch_threads  # noqa: F401
 
 from dmcnet_tpu_torch.cli import evaluate_video_i3d as port_cli
+from dmcnet_tpu_torch.data.sampling import RandomSampling
 from dmcnet_tpu_torch.models.weights import state_dict_from_flax
 
 T_FRAMES, H, W, N_VIDS = 24, 64, 80, 5
@@ -88,6 +91,23 @@ def checkpoints(tmp_path_factory):
     return jax_ckpt, port_ckpt
 
 
+class JaxDrawOrder(RandomSampling):
+    """The port command's sampler, made to draw what the JAX command draws:
+    that command also samples one clip of video 0 to initialise its model,
+    and pads each round's ragged last batch with a second clip of the last
+    video.  Both are extra draws just before a round's first video (the
+    padding draw of the round before), which this sampler makes and
+    discards, so that both commands score the same frames."""
+
+    calls = 0
+
+    def sampling(self, range_max):
+        if self.calls % N_VIDS == 0:
+            super().sampling(range_max)
+        self.calls += 1
+        return super().sampling(range_max)
+
+
 def _data_flags(corpus):
     return ["--data-root", str(corpus), "--video-prefix",
             str(corpus / "videos")]
@@ -102,6 +122,7 @@ def test_evaluate_cli_matches_jax(corpus, checkpoints, tmp_path,
     from dmcnet_tpu.data import video_iter as jax_video_iter
 
     fix_jax_gop_positions(monkeypatch, jax_video_iter)
+    monkeypatch.setattr(port_cli, "RandomSampling", JaxDrawOrder)
     # The JAX command initialises its variables with flax's init, then
     # loads the checkpoint over every one of them; run eagerly, that init
     # takes over a minute on this CPU, so it gets zeros of the same shapes.
@@ -143,6 +164,19 @@ def test_refused_flags_raise(corpus, checkpoints, tmp_path):
             (["--load-weights", str(orbax_dir)], "A item 2")):
         with pytest.raises(SystemExit, match=item):
             port_cli.main(base + extra)
+
+
+@pytest.mark.parametrize("dropped", ["gen_flow_model.", "running_"])
+def test_partial_checkpoint_raises(corpus, checkpoints, tmp_path, dropped):
+    """A file without the generator, or without BN statistics, would leave
+    those tensors at their initialisation: the command names them and
+    stops, as the JAX command's restore does."""
+    sd = torch.load(checkpoints[1], weights_only=True)
+    path = str(tmp_path / "partial.pth")
+    torch.save({k: v for k, v in sd.items() if dropped not in k}, path)
+    with pytest.raises(SystemExit, match=f"does not fill .*{dropped}"):
+        port_cli.main(FLAGS + _data_flags(corpus)
+                      + ["--load-weights", path, "--device", "cpu"])
 
 
 def test_cuda_default_raises_without_cuda(corpus, checkpoints, monkeypatch):
