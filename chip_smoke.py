@@ -59,7 +59,20 @@ Phases:
                  batch times, its checkpoint reloaded bit-equal and served
                  by DMCPredictor.from_checkpoint; B2's launches over the
                  phase
-  9. i3d         the I3D evaluation recipe (examples/i3d/eval.sh: HMDB-51,
+  9. gan         dmcnet_GAN training at the width of
+                 examples/hmdb51_gan/run.sh (batch 40 x 3 at 224,
+                 DenseNetTiny + ResNet-18 + Discriminator, lr 0.001,
+                 lr_d_mult 0.01) on the train phase's synthetic datasets:
+                 a D and a G step card against CPU with dropout off (f32
+                 losses and accuracies, f64 parameters), a frozen D step
+                 (classifier bit-unchanged, its Adam step count moved), D
+                 and G step times, clips/s of a D+G pair and peak memory in
+                 fp32, TF32 and bf16, the cli.train loop with gan=True (2
+                 epochs x 2 batches), its checkpoint's optimizer_d
+                 reloaded, scored by cli.test --arch_d on the card and on
+                 the CPU (G adversarial accuracy), served; B2's launches
+                 over the phase
+ 10. i3d         the I3D evaluation recipe (examples/i3d/eval.sh: HMDB-51,
                  flow+mp4, DenseNetTiny, clip 250, frame interval 1,
                  mv_minmaxnorm, accumulate 0, ds_factor 16, batch 1, 224²)
                  on clips of a VideoClipDataset over the synthetic GOPs:
@@ -73,7 +86,7 @@ Phases:
                  reloaded through --load-weights bit-equal, and an RGB
                  model's 3-channel stem adapted; the launch counts of B1
                  and B2 read around the path (no TPU kernel lies on it)
- 10. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+ 11. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
@@ -133,6 +146,18 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 5e-4, 5e-6
 TRAIN_TIMED_STEPS = 5
 LONG_EPOCH_BATCHES = 8
+# The GAN phase: examples/hmdb51_gan/run.sh's flags (its --weights aside),
+# its card-vs-CPU check on GAN_CHECK_VIDEOS videos, and the test command's
+# 3 segments x 10 crops over GAN_TEST_VIDEOS videos.
+GAN_MODEL = ["--data-name", "hmdb51", "--representation", "mv",
+             "--arch", "resnet18", "--arch_estimator", "DenseNetTiny",
+             "--arch_d", "Discriminator", "--no-accumulation",
+             "--mv_minmaxnorm", "1", "--flow_ds_factor", "16",
+             "--gen_flow_or_delta", "1"]
+GAN_RECIPE = GAN_MODEL + ["--num_segments", str(SEGMENTS), "--lr", "0.001",
+                          "--lr-adv-g", "1", "--lr-adv-d", "1",
+                          "--lr_d_mult", "0.01"]
+GAN_CHECK_VIDEOS, GAN_TEST_VIDEOS = 4, 4
 # The I3D evaluation recipe (examples/i3d/eval.sh), at full width.
 I3D_FLAGS = ["--dataset", "HMDB51", "--split", "1", "--clip-length", "250",
              "--frame-interval", "1", "--modality", "flow+mp4",
@@ -212,7 +237,7 @@ def host_ms(fn, n, torch):
 
 
 def synthetic_dataset(pool, num_videos, is_train, device, cache,
-                      flow_from_mv=False):
+                      flow_from_mv=False, num_segments=SEGMENTS):
     """A `CoviarDataset` over synthetic GOPs instead of decoded video: its
     own sampling and item contract — (S, H, W, 7) uint8 group stack,
     label, (H, W) — with each GOP's MV and residual accumulated on the
@@ -247,7 +272,7 @@ def synthetic_dataset(pool, num_videos, is_train, device, cache,
 
     items = [VideoItem(f"synthetic/{v}.avi", v % NUM_CLASS, 3 * T)
              for v in range(num_videos)]
-    return SyntheticCoviarDataset(None, None, None, "mv", SEGMENTS,
+    return SyntheticCoviarDataset(None, None, None, "mv", num_segments,
                                   is_train=is_train, gop=T, mv_minmaxnorm=1,
                                   items=items)
 
@@ -786,6 +811,279 @@ def _train_phase(torch, bt, dev, gops, workdir):
             "steady": steady, "b2_launches": b2}
 
 
+def _dropout_off(torch, model):
+    """Rate 0 on the discriminator's Dropout2d modules: the card and the CPU
+    draw their masks from different generators."""
+    for m in model.modules():
+        if isinstance(m, torch.nn.Dropout2d):
+            m.p = 0.0
+    return model
+
+
+def gan_phase(torch, bt, dev, gops, smi):
+    """9. dmcnet_GAN training at examples/hmdb51_gan/run.sh's width, with
+    the loop's and the test command's files in a temporary directory of the
+    checkout."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(
+            __file__))) as workdir:
+        return _gan_phase(torch, bt, dev, gops, smi, workdir)
+
+
+def _gan_phase(torch, bt, dev, gops, smi, workdir):
+    """9. One D and one G step on the card against the CPU, a frozen D step,
+    D and G step times in fp32, TF32 and bf16, the `cli.train` loop with
+    `gan=True`, its checkpoint reloaded, scored by `cli.test --arch_d` on
+    the card and on the CPU, and served.  Returns the numbers for the
+    summary line."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from dmcnet_tpu_torch.cli import test as test_cli
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+    from dmcnet_tpu_torch.data.dmc_dataset import (
+        BatchAssembler,
+        augment_train_batch,
+    )
+    from dmcnet_tpu_torch.serving import DMCPredictor
+    from dmcnet_tpu_torch.train import checkpoints as tckpt
+    from dmcnet_tpu_torch.train import optimizers as topt
+    from dmcnet_tpu_torch.train.engine_gan import make_gan_train_steps
+
+    phase("gan")
+    t_phase = time.perf_counter()
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = {}  # the phase accumulates its own GOPs
+    bt.backtrace_gop_cells.launches = 0
+    train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
+                                 flow_from_mv=True)
+    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
+                               flow_from_mv=True)
+    args = build_parser(gan=True).parse_args(GAN_RECIPE + [
+        "--epochs", "2", "--epoch-thre", "1", "--eval-freq", "1",
+        "--workers", "8", "--batch-size", str(BATCH),
+        "--model-prefix", os.path.join(workdir, "gan")])
+    raw = BatchAssembler(train_ds, input_size=SIZE, seed=0).train_batch(
+        range(BATCH))
+    batch = augment_train_batch(raw, "mv", flow_ds_factor=args.flow_ds_factor,
+                                input_size=SIZE, device=dev)
+    torch.cuda.synchronize()
+    print(f"  set-up (2 synthetic datasets, a {BATCH} x {SEGMENTS} train "
+          f"batch at {SIZE}) {time.perf_counter() - t_phase:.2f} s")
+
+    def stepper(model, bf16=False, frozen=False):
+        opts = topt.make_optimizers(model, args.lr_cls_mult,
+                                    args.lr_mse_mult, args.lr_d_mult)
+        topt.adjust_learning_rate(opts[:1], 0.0 if frozen else args.lr,
+                                  args.weight_decay)
+        topt.adjust_learning_rate(opts[1:], args.lr, args.weight_decay)
+        return (opts,) + make_gan_train_steps(
+            model, *opts, num_segments=SEGMENTS, lr_cls_w=args.lr_cls,
+            lr_adv_g=args.lr_adv_g, lr_adv_d=args.lr_adv_d,
+            lr_mse_w=args.lr_mse, loss_mse=args.loss_mse, bf16=bf16)
+
+    # (a) a D and a G step on the card against the CPU, dropout off: in
+    # float32 (TF32 off) losses and accuracies, in float64 those and every
+    # parameter and BN statistic (TRAIN_PARAM_RTOL)
+    n = GAN_CHECK_VIDEOS
+    for dtype in (torch.float32, torch.float64):
+        small = {k: v[:n].to(dtype) if v.is_floating_point() else v[:n]
+                 for k, v in batch.items()}
+        sides = []
+        for device in (dev, "cpu"):
+            model = _dropout_off(torch, train_cli.build_model(
+                args, NUM_CLASS, SIZE)).to(device, dtype)
+            _, d_step, g_step = stepper(model)
+            b = {k: v.to(device) for k, v in small.items()}
+            sides.append((model, {**{"D " + k: v for k, v in
+                                     d_step(b).items()},
+                                  **{"G " + k: v for k, v in
+                                     g_step(b).items()}}))
+        (gpu_model, got), (cpu_model, want) = sides
+        for k, w in want.items():
+            g, w = float(got[k]), float(w)
+            check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
+                  f"GAN {k} ({dtype}): card {g} != CPU {w}")
+        what = "losses and accuracies"
+        if dtype == torch.float64:
+            _state_close(torch, cpu_model.state_dict(),
+                         gpu_model.state_dict(), "GAN D+G steps, card vs CPU")
+            what += (f", parameters and BN statistics within rtol "
+                     f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL}")
+        print(f"  D + G step, {n} videos x {SEGMENTS} at {SIZE}, "
+              f"{str(dtype)[6:]}, dropout off: D loss card "
+              f"{float(got['D loss']):.7f} / CPU {float(want['D loss']):.7f},"
+              f" G loss card {float(got['G loss']):.7f} / CPU "
+              f"{float(want['G loss']):.7f}; {what} (rtol {TRAIN_LOSS_RTOL},"
+              " TF32 off)")
+    del sides, gpu_model, cpu_model
+
+    # (b) a frozen D step: the classifier at lr 0 keeps its parameters
+    # while its Adam moments and step count move; the discriminator trains
+    model = train_cli.build_model(args, NUM_CLASS, SIZE).to(dev)
+    (opt_cls, _, _), d_step, _ = stepper(model, frozen=True)
+    cls_before = {k: v.clone() for k, v in
+                  model.base_model.named_parameters()}
+    d_before = {k: v.clone() for k, v in
+                model.discriminator.named_parameters()}
+    d_step(batch)
+    check(all(torch.equal(v, cls_before[k])
+              for k, v in model.base_model.named_parameters()),
+          "the frozen D step moved the classifier")
+    n_cls = len(cls_before)
+    check(len(opt_cls.state) == n_cls
+          and all(float(st["step"]) == 1.0 for st in opt_cls.state.values()),
+          "the frozen D step did not advance the classifier's Adam step")
+    check(any(bool(st["exp_avg"].any()) for st in opt_cls.state.values()),
+          "the frozen D step left the classifier's moments at zero")
+    moved = sum(not torch.equal(v, d_before[k])
+                for k, v in model.discriminator.named_parameters())
+    check(moved == len(d_before), "the frozen D step did not train D")
+    print(f"  frozen D step ({BATCH} x {SEGMENTS}): classifier parameters "
+          f"bit-unchanged, its Adam step 1 on all {n_cls} tensors; "
+          f"{moved} discriminator tensors moved")
+    del opt_cls, d_step
+
+    # (c) D and G step times at the recipe's batch
+    clips = BATCH * SEGMENTS
+    timing = {}
+    print(f"  step times on {smi}:")
+    for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
+                              ("bf16", False, True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        _, d_step, g_step = stepper(model, bf16=bf16)
+        row = {}
+        for kind, fn in (("d", d_step), ("g", g_step)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row[kind + "_ms"] = median_ms(lambda: fn(batch),
+                                          TRAIN_TIMED_STEPS, torch)
+            row[kind + "_peak_bytes"] = torch.cuda.max_memory_allocated()
+        row["pair_clips_per_s"] = 2 * clips / (row["d_ms"] + row["g_ms"]) \
+            * 1e3
+        timing[label] = row
+        print(f"  {label}: D step {row['d_ms']:.3f} ms, G step "
+              f"{row['g_ms']:.3f} ms (medians of {TRAIN_TIMED_STEPS}, CUDA "
+              f"events, {clips} clips) = {row['pair_clips_per_s']:.1f} "
+              f"clips/s over a D+G pair; peak memory D "
+              f"{row['d_peak_bytes'] / 2**30:.3f} GiB, G "
+              f"{row['g_peak_bytes'] / 2**30:.3f} GiB")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del model, d_step, g_step
+
+    # (d) the cli.train loop with gan=True: 2 epochs x 2 batches (D, G)
+    train_cli.SAVE_FREQ = 1  # the file then holds the state the loop ends
+    # with
+    t0 = time.perf_counter()
+    result = train_cli.train(args, train_ds, val_ds, device=dev,
+                             input_size=SIZE, gan=True)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    check(len(result.epochs) == 2, "the GAN loop did not run 2 epochs")
+    for e in result.epochs:
+        print(f"  loop epoch {e['epoch']}: data time {e['data_time']:.4f} s, "
+              f"batch time {e['batch_time']:.4f} s (averages over a D and a "
+              "G batch, host clock)")
+    print(f"  loop: 2 epochs with evaluation in {loop_s:.2f} s")
+
+    # (e) the checkpoint: three optimizers reload, cli.test --arch_d scores
+    # it on the card and on the CPU, DMCPredictor serves it
+    ckpt = result.checkpoint
+    check(ckpt is not None and os.path.exists(ckpt), "no GAN checkpoint")
+    model2 = train_cli.build_model(args, NUM_CLASS, SIZE).to(dev)
+    opts2 = topt.make_optimizers(model2, args.lr_cls_mult, args.lr_mse_mult,
+                                 args.lr_d_mult)
+    meta = tckpt.load_checkpoint(ckpt, model2, opts2)
+    check(meta["epoch"] == 2, f"GAN checkpoint epoch {meta['epoch']}")
+    sd, sd2 = result.model.state_dict(), model2.state_dict()
+    check(all(torch.equal(v, sd2[k]) for k, v in sd.items()),
+          "reloaded GAN parameters or BN buffers differ")
+    check(len(result.optimizers) == 3 and bool(opts2[2].state)
+          and all(_equal_optimizer_states(a, b)
+                  for a, b in zip(result.optimizers, opts2)),
+          "reloaded optimizer states (optimizer_d among them) differ")
+    del model2, opts2
+
+    test_list = os.path.join(workdir, "test_list.txt")
+    with open(test_list, "w") as f:
+        f.writelines(f"synthetic/{v}.avi 0 {v % NUM_CLASS}\n"
+                     for v in range(GAN_TEST_VIDEOS))
+    scored = []  # (G adversarial accuracy, scores, s) on the card, the CPU
+    real_dataset = test_cli.CoviarDataset
+    # the command's dataset over the synthetic GOPs (no decoder here)
+    test_cli.CoviarDataset = lambda **kw: synthetic_dataset(
+        pool, GAN_TEST_VIDEOS, False, dev, cache, flow_from_mv=True,
+        num_segments=kw["num_segments"])
+    try:
+        for device in (str(dev), "cpu"):
+            scores = os.path.join(workdir, f"scores_{len(scored)}")
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                test_cli.main(GAN_MODEL + [
+                    "--test-list", test_list, "--weights", ckpt,
+                    "--test_segments", "3", "--test-crops", "10",
+                    "--input_size", str(SIZE), "--save-scores", scores,
+                    "--device", device])
+            g_adv = re.findall(r"G adversarial accuracy ([0-9.]+)%",
+                               out.getvalue())
+            check(len(g_adv) == 1, f"cli.test --arch_d on {device} printed "
+                  f"no G adversarial accuracy: {out.getvalue()[-300:]}")
+            with np.load(scores + ".npz", allow_pickle=True) as data:
+                s_arr = np.stack([x[0] for x in data["scores"]])
+            scored.append((float(g_adv[0]), s_arr,
+                           time.perf_counter() - t0))
+    finally:
+        test_cli.CoviarDataset = real_dataset
+    (g_card, s_card, t_card), (g_cpu, s_cpu, t_cpu) = scored
+    check(s_card.shape == (GAN_TEST_VIDEOS, 1, NUM_CLASS)
+          and np.isfinite(s_card).all(), "cli.test --arch_d scores")
+    check(g_card == g_cpu, f"G adversarial accuracy card {g_card}% != CPU "
+          f"{g_cpu}%")
+    check(np.allclose(s_card, s_cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          "cli.test --arch_d scores: card != CPU")
+    print(f"  cli.test --arch_d Discriminator ({GAN_TEST_VIDEOS} videos x 3 "
+          f"segments x 10 crops): G adversarial accuracy {g_card}% on the "
+          f"card and {g_cpu}% on the CPU; scores max |diff| "
+          f"{float(np.abs(s_card - s_cpu).max()):.3g}; {t_card:.2f} s card, "
+          f"{t_cpu:.2f} s CPU")
+
+    pred = DMCPredictor.from_checkpoint(ckpt, num_class=NUM_CLASS,
+                                        device=dev)
+    with torch.inference_mode():
+        result.model.eval()
+        want = result.model(batch["mv"], batch["residual"])[0]
+        got = pred.model.classify(pred.model.generate(batch["mv"],
+                                                      batch["residual"]))
+    check(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          "served logits differ from the trained GAN model's")
+    print(f"  checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}): "
+          "parameters, BN buffers and all three Adam states (optimizer_d "
+          "too) reload bit-equal; DMCPredictor.from_checkpoint drops the "
+          f"discriminator and scores {BATCH} videos, logits max |diff| "
+          f"{float((got - want).abs().max()):.3g}")
+
+    # (f) B2 on the phase's path
+    b2 = bt.backtrace_gop_cells.launches
+    phase_s = time.perf_counter() - t_phase
+    print(f"  backtrace_gop_cells launches over the phase: {b2}; gan phase "
+          f"{phase_s:.1f} s")
+    check(b2 >= 1, "the gan phase did not launch B2")
+    return {"timing": timing, "epochs": [
+        {k: e[k] for k in ("epoch", "data_time", "batch_time")}
+        for e in result.epochs], "loop_s": loop_s,
+        "g_adv_card": g_card, "g_adv_cpu": g_cpu, "test_card_s": t_card,
+        "test_cpu_s": t_cpu, "b2_launches": b2, "phase_s": phase_s}
+
+
 def synthetic_clip_dataset(pool, num_videos, clip_length, device, cache):
     """A `VideoClipDataset` over synthetic GOPs instead of decoded video:
     its own sampling, retries and item contract ((T, H, W, 7) uint8 clip,
@@ -868,7 +1166,7 @@ def i3d_flops(torch, net, x):
 
 
 def i3d_phase(torch, bt, dev, gops):
-    """9. I3D whole-video evaluation at the recipe's width, with its files
+    """10. I3D whole-video evaluation at the recipe's width, with its files
     in a temporary directory of the checkout."""
     import os
     import tempfile
@@ -1373,9 +1671,10 @@ def main():
     codec_times = codec_phase(torch, bt, dev, gops)
     data = data_phase(torch, bt, dev, gops, pred, rng)
     train = train_phase(torch, bt, dev, gops)
+    gan = gan_phase(torch, bt, dev, gops, smi)
     i3d = i3d_phase(torch, bt, dev, gops)
 
-    # 10. videos --------------------------------------------------------------
+    # 11. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -1451,7 +1750,7 @@ def main():
                       "launch_floor_ms": b2["floor_ms"],
                       "codec_ms": codec_times,
                       "data_ms": data["times"], "train": train,
-                      "i3d": i3d,
+                      "gan": gan, "i3d": i3d,
                       "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

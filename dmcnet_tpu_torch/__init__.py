@@ -15,13 +15,16 @@ package's module names so every counterpart can be found:
                   its batches, the I3D clip dataset and its batches, crops
                   and normalization on a device, the batch loader
   models/         estimators (ContextNetwork(-Att), DenseNet family, Tiny
-                  early fusion), ResNet-18/34, DMCNet, PlainTSN, the GAN
-                  discriminators, I3D, weight bridge
+                  early fusion), ResNet-18/34, DMCNet (with or without a
+                  discriminator), PlainTSN, the GAN discriminators, I3D,
+                  weight bridge
   train/          Adam parameter groups, train/eval steps with the freeze
-                  phase, the I3D eval step, meters, checkpoints
+                  phase, the GAN's alternating D and G steps, the I3D eval
+                  step, meters, checkpoints
   utils/          JSON-lines metrics log
   serving         DMCPredictor: compressed video in, action scores out
-  cli/            serve (batch / stdin scoring), train, test, combine,
+  cli/            serve (batch / stdin scoring), train, train_gan, test
+                  (with the GAN's adversarial accuracy), combine,
                   evaluate_video_i3d
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without

@@ -8,8 +8,12 @@ bit-compatible `.npz` score dump: `scores` is an object array of (score
 test.py:183-198), plus `labels` and `names`, so the reference combine.py /
 run_combine.sh consume it unchanged.  `--weights` takes the port's
 checkpoint or a reference `.pth.tar`; `--plain 1` scores the bare TSN
-backbone on the modality input (`models.tsn.PlainTSN`).  `--viz`, `--pp`
-and `--arch_d` belong to slices not ported yet and raise.
+backbone on the modality input (`models.tsn.PlainTSN`).  `--arch_d` scores
+a GAN checkpoint with its discriminator, built for `--input_size`, and
+prints the G adversarial accuracy: the share of generated cues the
+discriminator rates real, over every video's segments x crops (reference
+dmcnet_GAN test.py:158,184-192).  `--viz` and `--pp` belong to slices not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -61,8 +65,8 @@ def build_parser():
     parser.add_argument('--arch', type=str)
     parser.add_argument('--arch_estimator', type=str, default="ContextNetwork")
     parser.add_argument('--arch_d', type=str, default=None,
-                        help='GAN discriminator: not ported yet (ROADMAP A '
-                             'item 7); raises when set')
+                        help='GAN discriminator architecture: score its '
+                             'adversarial accuracy too')
     parser.add_argument('--save-scores', type=str, default=None)
     parser.add_argument('--test_segments', type=int, default=25)
     parser.add_argument('--test-crops', type=int, default=10)
@@ -107,13 +111,12 @@ def main(argv=None):
     refuse_unported([
         (args.viz, "--viz", "A item 10 (utils/viz)"),
         (args.pp > 1, "--pp", "A item 9 (parallel layer)"),
-        (args.arch_d is not None, "--arch_d", "A item 7 (GAN)"),
         (args.gpus is not None and len(args.gpus) > 1,
          "--gpus with several ids", "A item 9 (parallel layer)"),
     ])
-    if args.plain and args.att:
+    if args.plain and (args.att or args.arch_d):
         raise SystemExit("--plain scores the bare TSN backbone (no "
-                         "generator, no --att)")
+                         "generator, no --att, no --arch_d)")
     device = device_for(args)
     if args.packed_gen:
         print(f"--packed-gen {args.packed_gen}: the port scores the unpacked "
@@ -143,14 +146,17 @@ def main(argv=None):
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         if args.plain:
-            channels = 2 if args.representation == "mv" else 3
+            # iframe and residual carry 3 channels, mv and flow 2
+            channels = 3 if args.representation in ("iframe", "residual") \
+                else 2
             net = PlainTSN(num_class, arch=args.arch, in_channels=channels)
         else:
             net = DMCNet(num_class, num_segments=args.test_segments,
                          arch=args.arch, arch_estimator=args.arch_estimator,
                          gen_flow_or_delta=args.gen_flow_or_delta,
                          gen_flow_ds_factor=args.gen_flow_ds_factor,
-                         att=args.att)
+                         att=args.att, arch_d=args.arch_d,
+                         input_size=args.input_size)
     if args.weights:
         skipped, missing = load_reference_weights(net, args.weights)
         print(f"loaded weights {args.weights} (skipped {len(skipped)}, "
@@ -159,6 +165,7 @@ def main(argv=None):
 
     total_seg = args.test_segments * args.test_crops
     output, video_labels = [], []
+    g_adv_real, g_adv_rows = 0, 0
     proc_start_time = time.time()
     for i in range(len(ds)):
         batch = augment_eval_batch(asm.eval_batch([i]), **aug)
@@ -166,7 +173,12 @@ def main(argv=None):
             if args.plain:
                 logits = net(batch[plain_key])
             else:
-                logits = net(batch["mv"], batch["residual"])[0]
+                outs = net(batch["mv"], batch["residual"])
+                logits = outs[0]
+                if args.arch_d:
+                    validity = outs[2]
+                    g_adv_real += int((validity.argmax(-1) == 1).sum())
+                    g_adv_rows += validity.shape[0]
             scores = segment_consensus(logits, total_seg).cpu().numpy()
         label = int(batch["label"][0])
         output.append((scores, label))
@@ -179,6 +191,9 @@ def main(argv=None):
     video_pred = [np.argmax(x[0]) for x in output]
     acc = float(np.mean(np.asarray(video_pred) == np.asarray(video_labels)))
     print(f"Accuracy {acc * 100:.02f}% ({len(video_pred)})")
+    if g_adv_rows:
+        print(f"G adversarial accuracy "
+              f"{100.0 * g_adv_real / g_adv_rows:.02f}%")
 
     if args.save_scores is not None:
         with open(args.test_list) as f:

@@ -1,6 +1,7 @@
 """dmcnet training command on one card — the port's counterpart of
 `dmcnet_tpu/cli/train.py`, flag-compatible with reference
-code/dmcnet/train.py, plus `--device` (default `cuda`):
+code/dmcnet/train.py (and, with `gan` — `cli/train_gan.py` — with
+code/dmcnet_GAN/train.py), plus `--device` (default `cuda`):
 
     python -m dmcnet_tpu_torch.cli.train --data-name hmdb51 \
         --representation mv --arch resnet18 --arch_estimator DenseNetTiny \
@@ -13,8 +14,11 @@ code/dmcnet/train.py, plus `--device` (default `cuda`):
 Orchestration mirrors the reference `main()` (train.py:31-201): partial
 init from `--weights`, per-epoch stepwise lr with the freeze phase, train
 steps fed by `PrefetchLoader` threads, periodic validation, best and
-periodic checkpoints.  `train()` holds the epoch loop and takes the
-datasets, so a caller with its own datasets drives the same loop.  The
+periodic checkpoints.  The GAN variant alternates a D step (even batches)
+and a G step (odd batches) of `train/engine_gan.py` over three optimizers;
+its freeze phase steps the classifier at lr 0.  `train()` holds the epoch
+loop and takes the datasets, so a caller with its own datasets drives the
+same loop.  The
 ragged last validation batch runs at its own size (the JAX package pads it
 to keep one compiled shape); the means are the same.  Flags of slices not
 ported yet raise `SystemExit` naming their ROADMAP item.
@@ -50,6 +54,7 @@ from dmcnet_tpu_torch.train.checkpoints import (
     save_checkpoint,
 )
 from dmcnet_tpu_torch.train.engine import make_eval_step, make_train_step
+from dmcnet_tpu_torch.train.engine_gan import make_gan_train_steps
 from dmcnet_tpu_torch.train.metrics import AverageMeter
 from dmcnet_tpu_torch.train.optimizers import (
     adjust_learning_rate,
@@ -61,18 +66,20 @@ from dmcnet_tpu_torch.utils.metrics_log import MetricsLogger
 SAVE_FREQ = 40
 PRINT_FREQ = 20
 _METRICS = ("loss", "loss_cls", "loss_mse", "top1", "top5")
+_GAN_METRICS = ("loss_adv", "acc_D_adv", "acc_G_adv")
 
 
-def build_model(args, num_class):
-    """The reference `Model` without a discriminator, initialised from a
-    fixed seed."""
+def build_model(args, num_class, input_size=224):
+    """The reference `Model`, with the discriminator `args.arch_d` when the
+    options have one (the GAN parser's), initialised from a fixed seed."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         return DMCNet(num_class, num_segments=args.num_segments,
                       arch=args.arch, arch_estimator=args.arch_estimator,
                       gen_flow_or_delta=args.gen_flow_or_delta,
                       gen_flow_ds_factor=args.gen_flow_ds_factor,
-                      att=args.att)
+                      att=args.att, arch_d=getattr(args, "arch_d", None),
+                      input_size=input_size)
 
 
 def make_datasets(args):
@@ -95,7 +102,7 @@ def make_datasets(args):
 class TrainResult:
     best_prec1: float
     model: torch.nn.Module
-    optimizers: tuple          # (opt_cls, opt_gf)
+    optimizers: tuple          # (opt_cls, opt_gf[, opt_d])
     epochs: list               # per epoch: {epoch, data_time, batch_time}
     #                            (averages, s) and the per-batch lists
     #                            data_times, batch_times
@@ -106,18 +113,19 @@ def flush_pending(pending, meters):
     """Read the deferred device metrics into the meters (exact values; the
     deferral only keeps a device sync off every step)."""
     for metrics, n in pending:
-        for k in _METRICS:
-            meters[k].update(metrics[k].item(), n)
+        for k, v in metrics.items():
+            meters[k].update(v.item(), n)
     pending.clear()
 
 
-def train(args, train_ds, val_ds, *, device, input_size=224):
+def train(args, train_ds, val_ds, *, device, input_size=224, gan=False):
     """The epoch loop of reference main() over `train_ds` / `val_ds`
-    (CoviarDataset contract) on `device`.  `input_size` is the reference's
-    fixed 224 (model.py:306) unless a caller shrinks it."""
+    (CoviarDataset contract) on `device`; with `gan`, the dmcnet_GAN loop
+    (`args` from `build_parser(gan=True)`).  `input_size` is the
+    reference's fixed 224 (model.py:306) unless a caller shrinks it."""
     device = torch.device(device)
     num_class = num_classes_for(args.data_name)
-    model = build_model(args, num_class).to(device)
+    model = build_model(args, num_class, input_size).to(device)
     if args.packed_gen:
         print(f"--packed-gen {args.packed_gen}: the port trains the unpacked "
               "layout (packing is an exact reparameterization of it)")
@@ -139,7 +147,8 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     print("sample batch: " + ", ".join(
         f"{k} {tuple(v.shape)}" for k, v in sorted(sample.items())))
 
-    optimizers = make_optimizers(model, args.lr_cls_mult, args.lr_mse_mult)
+    optimizers = make_optimizers(model, args.lr_cls_mult, args.lr_mse_mult,
+                                 args.lr_d_mult if gan else None)
     start_epoch, best_prec1 = 0, 0.0
     if args.weights:
         skipped, missing = load_reference_weights(model, args.weights)
@@ -159,8 +168,14 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     steps = dict(num_segments=args.num_segments, lr_cls_w=args.lr_cls,
                  lr_mse_w=args.lr_mse, loss_mse=args.loss_mse,
                  bf16=bool(args.bf16))
-    train_step = make_train_step(model, *optimizers, **steps)
     eval_step = make_eval_step(model, **steps)
+    if gan:
+        gan_steps = make_gan_train_steps(
+            model, *optimizers, lr_adv_g=args.lr_adv_g,
+            lr_adv_d=args.lr_adv_d, **steps)
+    else:
+        train_step = make_train_step(model, *optimizers, **steps)
+    metric_keys = _METRICS + (_GAN_METRICS if gan else ())
 
     bs = args.batch_size
     batches_per_epoch = max(1, len(train_ds) // bs)
@@ -171,43 +186,59 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
             lr = step_decay_lr(args.lr, epoch, args.lr_steps, args.lr_decay)
             freeze = epoch < args.epoch_thre
             print(f"current epoch freeze?: {freeze}")
-            adjust_learning_rate(optimizers, lr, args.weight_decay)
+            if gan:  # the classifier steps at lr 0 while frozen
+                adjust_learning_rate(optimizers[:1], 0.0 if freeze else lr,
+                                     args.weight_decay)
+                adjust_learning_rate(optimizers[1:], lr, args.weight_decay)
+            else:
+                adjust_learning_rate(optimizers, lr, args.weight_decay)
             loader = PrefetchLoader(
                 lambda i: train_asm.train_batch(range(i * bs, (i + 1) * bs)),
                 batches_per_epoch, workers=args.workers)
             meters = {k: AverageMeter()
-                      for k in ("batch_time", "data_time") + _METRICS}
+                      for k in ("batch_time", "data_time") + metric_keys}
             pending, data_times, batch_times = [], [], []
             end = time.time()
             for i, raw in enumerate(loader):
                 data_times.append(time.time() - end)
                 meters["data_time"].update(data_times[-1])
                 batch = augment_train_batch(raw, **aug)
-                pending.append((train_step(batch, not freeze),
-                                len(raw["label"])))
+                if gan:
+                    metrics = gan_steps[i % 2](batch)
+                else:
+                    metrics = train_step(batch, not freeze)
+                pending.append((metrics, len(raw["label"])))
                 batch_times.append(time.time() - end)
                 meters["batch_time"].update(batch_times[-1])
                 end = time.time()
                 if i % PRINT_FREQ == 0:
                     flush_pending(pending, meters)
-                    print(f"Epoch: [{epoch}][{i}/{batches_per_epoch}], "
-                          f"lr_gf: {lr:.7f}\t"
-                          f"Time {meters['batch_time'].val:.3f} "
-                          f"({meters['batch_time'].avg:.3f})\t"
-                          f"Data {meters['data_time'].val:.3f} "
-                          f"({meters['data_time'].avg:.3f})\t"
-                          f"Loss {meters['loss'].val:.4f} "
-                          f"({meters['loss'].avg:.4f})\t"
-                          f"Prec@1 {meters['top1'].val:.3f} "
-                          f"({meters['top1'].avg:.3f})\t"
-                          f"Prec@5 {meters['top5'].val:.3f} "
-                          f"({meters['top5'].avg:.3f})")
+                    line = (f"Epoch: [{epoch}][{i}/{batches_per_epoch}], "
+                            f"lr_gf: {lr:.7f}\t"
+                            f"Time {meters['batch_time'].val:.3f} "
+                            f"({meters['batch_time'].avg:.3f})\t"
+                            f"Data {meters['data_time'].val:.3f} "
+                            f"({meters['data_time'].avg:.3f})\t"
+                            f"Loss {meters['loss'].val:.4f} "
+                            f"({meters['loss'].avg:.4f})\t"
+                            f"Prec@1 {meters['top1'].val:.3f} "
+                            f"({meters['top1'].avg:.3f})\t"
+                            f"Prec@5 {meters['top5'].val:.3f} "
+                            f"({meters['top5'].avg:.3f})")
+                    extra = {}
+                    if gan:
+                        line = (("D " if i % 2 == 0 else "G ") + line
+                                + f"\tLoss_adv {meters['loss_adv'].avg:.4f}"
+                                f"\tacc_D_adv {meters['acc_D_adv'].avg:.3f}"
+                                f"\tacc_G_adv {meters['acc_G_adv'].avg:.3f}")
+                        extra["loss_adv"] = meters["loss_adv"].avg
+                    print(line)
                     mlog.log("train", epoch=epoch, step=i, lr=lr,
                              loss=meters["loss"].avg,
                              top1=meters["top1"].avg,
                              top5=meters["top5"].avg,
                              batch_time=meters["batch_time"].avg,
-                             data_time=meters["data_time"].avg)
+                             data_time=meters["data_time"].avg, **extra)
             flush_pending(pending, meters)
             result.epochs.append({"epoch": epoch,
                                   "data_time": meters["data_time"].avg,
@@ -251,10 +282,10 @@ def validate(val_asm, eval_step, batch_size, aug):
     return top1.avg
 
 
-def main(argv=None, input_size=224):
-    """`input_size` defaults to the reference's fixed 224; tests shrink
-    it."""
-    args = build_parser().parse_args(argv)
+def main(argv=None, gan=False, input_size=224):
+    """`gan` selects the dmcnet_GAN trainer; `input_size` defaults to the
+    reference's fixed 224, and tests shrink it."""
+    args = build_parser(gan=gan).parse_args(argv)
     print("Training arguments:")
     for k, v in sorted(vars(args).items()):
         print(f"\t{k}: {v}")
@@ -276,7 +307,7 @@ def main(argv=None, input_size=224):
     device = device_for(args)
     train_ds, val_ds = make_datasets(args)
     return train(args, train_ds, val_ds, device=device,
-                 input_size=input_size).best_prec1
+                 input_size=input_size, gan=gan).best_prec1
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
-"""Training options — the port's copy of `dmcnet_tpu/cli/train_options.py`
-(the dmcnet flags; the GAN trainer's are not ported), flag-compatible with
-reference code/dmcnet/train_options.py:12-91, plus `--device`.
+"""Training options — the port's copy of `dmcnet_tpu/cli/train_options.py`,
+flag-compatible with reference code/dmcnet/train_options.py:12-91 and,
+with `gan`, the dmcnet_GAN additions (train_options.py:37-38,74-77,88),
+plus `--device`.
 
 Flags of slices not ported yet are parsed, so the reference scripts still
 parse, and `cli/train.py` refuses them by name with their ROADMAP item.
@@ -9,7 +10,7 @@ parse, and `cli/train.py` refuses them by name with their ROADMAP item.
 import argparse
 
 
-def build_parser():
+def build_parser(gan=False):
     parser = argparse.ArgumentParser(description="CoViAR")
 
     # Data.
@@ -36,6 +37,9 @@ def build_parser():
                         help='base architecture.')
     parser.add_argument('--arch_estimator', type=str, default="ContextNetwork",
                         help='estimator architecture.')
+    if gan:
+        parser.add_argument('--arch_d', type=str, default="Discriminator",
+                            help='discriminator architecture.')
     parser.add_argument('--num_segments', type=int, default=3,
                         help='number of TSN segments.')
     parser.add_argument('--no-accumulation', action='store_true',
@@ -55,7 +59,7 @@ def build_parser():
                         help='0: generate flow; 1: generate flow delta.')
     parser.add_argument('--att', type=int, default=0,
                         help='0: no attention; 1: pixel-level attention.')
-    parser.add_argument('--mv_minmaxnorm', type=int, default=0,
+    parser.add_argument('--mv_minmaxnorm', type=int, default=1 if gan else 0,
                         help='min-max normalize mv values.')
 
     # Training.
@@ -74,6 +78,13 @@ def build_parser():
     parser.add_argument('--loss-mse', default='MSELoss', type=str)
     parser.add_argument('--lr-mse', default=0.1, type=float,
                         help='mse loss weight.')
+    if gan:
+        parser.add_argument('--lr-adv-g', default=1, type=float,
+                            help='adversarial G loss weight.')
+        parser.add_argument('--lr-adv-d', default=1, type=float,
+                            help='adversarial D loss weight.')
+        parser.add_argument('--lr_d_mult', default=0.01, type=float,
+                            help='discriminator lr multiplier.')
     parser.add_argument('--lr_cls_mult', default=0.01, type=float,
                         help='cls learning multiplier.')
     parser.add_argument('--lr_mse_mult', default=0.01, type=float,

@@ -1,11 +1,13 @@
 """Adversarial discriminators (counterpart of
-`dmcnet_tpu/models/discriminators.py`), forward only.
+`dmcnet_tpu/models/discriminators.py`).
 
 Architectures of reference dmcnet_GAN/model.py:254-438: stacks of blocks
 [conv3x3 (stride 2 to downsample, stride 1 to deepen) + LeakyReLU(0.2) +
 Dropout2d(0.25) + BatchNorm] ending in a 2-logit `Linear` over the
 flattened NCHW map (real/fake as a 2-class problem).  The first block has no
-BN.  The reference's `nn.BatchNorm2d(out, 0.8)` sets **eps = 0.8** (the
+BN.  In train mode `Dropout2d` drops whole channels, as the JAX package's
+`Dropout(broadcast_dims=(1, 2))` does on NHWC, and BN normalizes by the
+batch's statistics.  The reference's `nn.BatchNorm2d(out, 0.8)` sets **eps = 0.8** (the
 positional argument), a quirk kept so reference checkpoints score the same.
 
 Module names are the reference keys (`dmcnet_tpu/models/import_torch.py:

@@ -1,3 +1,3 @@
-"""dmcnet training in the port: optimizers, train/eval steps, metrics and
-checkpoints (counterpart of `dmcnet_tpu/train`; the GAN and I3D engines
-are not ported yet)."""
+"""Training in the port: optimizers, the dmcnet train/eval steps, the GAN's
+D and G steps, the I3D eval step, metrics and checkpoints (counterpart of
+`dmcnet_tpu/train`; the I3D train steps are not ported yet)."""

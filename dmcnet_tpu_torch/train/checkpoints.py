@@ -2,10 +2,12 @@
 for the reference's torch format).
 
 A checkpoint is a `torch.save` of the reference `.pth.tar` payload
-(code/dmcnet/train.py:372-377) plus both optimizers:
+(code/dmcnet/train.py:372-377) plus the optimizers:
 
-    {epoch, arch, best_prec1, state_dict, optimizer_cls, optimizer_gf}
+    {epoch, arch, best_prec1, state_dict, optimizer_cls, optimizer_gf
+     [, optimizer_d]}
 
+`optimizer_d` is the GAN variant's discriminator optimizer.
 `state_dict` carries the reference key names, so the reference stack, the
 JAX package's `--weights` importer and `DMCPredictor.from_checkpoint`
 (`weights_only=True`) all load it; the optimizer states make a resume
@@ -40,17 +42,20 @@ def _cpu(obj):
     return obj
 
 
+_OPTIMIZER_KEYS = ("optimizer_cls", "optimizer_gf", "optimizer_d")
+
+
 def save_checkpoint(model, meta, filename, optimizers=None, is_best=False):
-    """Write {**meta, state_dict[, optimizer_cls, optimizer_gf]} through a
-    temporary file and `os.replace`; copy to *_model_best.* when `is_best`
-    (reference save_checkpoint, train.py:372-377).  `meta` holds epoch,
-    arch and best_prec1; `optimizers` is (opt_cls, opt_gf) or None (the
-    reference layout alone)."""
+    """Write {**meta, state_dict[, optimizer_cls, optimizer_gf
+    [, optimizer_d]]} through a temporary file and `os.replace`; copy to
+    *_model_best.* when `is_best` (reference save_checkpoint,
+    train.py:372-377).  `meta` holds epoch, arch and best_prec1;
+    `optimizers` is (opt_cls, opt_gf[, opt_d]) or None (the reference
+    layout alone)."""
     payload = dict(meta)
     payload["state_dict"] = _cpu(model.state_dict())
-    if optimizers is not None:
-        payload["optimizer_cls"] = _cpu(optimizers[0].state_dict())
-        payload["optimizer_gf"] = _cpu(optimizers[1].state_dict())
+    for key, opt in zip(_OPTIMIZER_KEYS, optimizers or ()):
+        payload[key] = _cpu(opt.state_dict())
     parent = os.path.dirname(filename)
     if parent:
         os.makedirs(parent, exist_ok=True)
@@ -70,14 +75,13 @@ def best_name(filename):
 
 
 def load_checkpoint(filename, model, optimizers=None):
-    """Restore the model (strict) and, when given, (opt_cls, opt_gf) from a
-    checkpoint of `save_checkpoint`; returns its meta {epoch, arch,
-    best_prec1}."""
+    """Restore the model (strict) and, when given, (opt_cls, opt_gf
+    [, opt_d]) from a checkpoint of `save_checkpoint`; returns its meta
+    {epoch, arch, best_prec1}."""
     payload = torch.load(filename, map_location="cpu", weights_only=True)
     model.load_state_dict(payload["state_dict"])
-    if optimizers is not None:
-        optimizers[0].load_state_dict(payload["optimizer_cls"])
-        optimizers[1].load_state_dict(payload["optimizer_gf"])
+    for key, opt in zip(_OPTIMIZER_KEYS, optimizers or ()):
+        opt.load_state_dict(payload[key])
     return {k: payload.get(k) for k in ("epoch", "arch", "best_prec1")}
 
 

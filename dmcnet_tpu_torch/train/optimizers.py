@@ -6,7 +6,8 @@ Reference code/dmcnet/train.py:121-142 gives each top-level module two
 groups, non-bias parameters with decay_mult 1 and biases with decay_mult 0
 (a BN `weight` keeps decay 1), and builds one Adam(eps=1e-3) for
 `base_model` (lr_mult = lr_cls_mult) and one for `gen_flow_model` (lr_mult =
-lr_mse_mult).  Every epoch `adjust_learning_rate` sets each group's lr to
+lr_mse_mult); the GAN variant a third for `discriminator` (lr_mult =
+lr_d_mult, dmcnet_GAN/train.py:124-153).  Every epoch `adjust_learning_rate` sets each group's lr to
 base_lr * lr_mult and its weight decay to wd * decay_mult (train.py:
 398-408); torch Adam adds the decay to the gradient (L2, not AdamW).
 
@@ -39,14 +40,17 @@ def param_groups(module, lr_mult):
             {"params": bias, "lr_mult": lr_mult, "decay_mult": 0.0}]
 
 
-def make_optimizers(model, lr_cls_mult, lr_mse_mult):
-    """(opt_cls, opt_gf): Adam(eps=1e-3) over `model.base_model` and
-    `model.gen_flow_model`.  Their lr and weight decay are set by
+def make_optimizers(model, lr_cls_mult, lr_mse_mult, lr_d_mult=None):
+    """(opt_cls, opt_gf[, opt_d]): Adam(eps=1e-3) over `model.base_model`,
+    `model.gen_flow_model` and, when `lr_d_mult` is given,
+    `model.discriminator`.  Their lr and weight decay are set by
     `adjust_learning_rate` before the first step."""
-    return (torch.optim.Adam(param_groups(model.base_model, lr_cls_mult),
-                             lr=0.0, eps=ADAM_EPS),
-            torch.optim.Adam(param_groups(model.gen_flow_model, lr_mse_mult),
-                             lr=0.0, eps=ADAM_EPS))
+    groups = [(model.base_model, lr_cls_mult),
+              (model.gen_flow_model, lr_mse_mult)]
+    if lr_d_mult is not None:
+        groups.append((model.discriminator, lr_d_mult))
+    return tuple(torch.optim.Adam(param_groups(module, mult), lr=0.0,
+                                  eps=ADAM_EPS) for module, mult in groups)
 
 
 def adjust_learning_rate(optimizers, lr, weight_decay):

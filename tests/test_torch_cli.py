@@ -166,7 +166,6 @@ def test_port_train_test_combine(corpus, tmp_path, capsys):
     ("train", ["--profile-dir", "trace"], "A item 10"),
     ("test", ["--viz", "1"], "A item 10"),
     ("test", ["--pp", "2"], "A item 9"),
-    ("test", ["--arch_d", "Discriminator"], "A item 7"),
 ])
 def test_unported_flags_raise(corpus, cli, flags, item):
     """A flag of a later slice stops the command and names its ROADMAP

@@ -36,7 +36,9 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.data.video_iter",
             "dmcnet_tpu_torch.data.iterator_factory",
             "dmcnet_tpu_torch.train.engine_i3d",
-            "dmcnet_tpu_torch.cli.evaluate_video_i3d"}
+            "dmcnet_tpu_torch.cli.evaluate_video_i3d",
+            "dmcnet_tpu_torch.train.engine_gan",
+            "dmcnet_tpu_torch.cli.train_gan"}
 
 
 def test_port_imports_no_jax():
