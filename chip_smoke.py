@@ -56,9 +56,9 @@ Phases:
                  state bit-unchanged), median step and eval times, clips/s
                  and peak memory in fp32, TF32 and bf16, the cli.train loop
                  (2 epochs x 2 batches, 8 loader threads) with its data and
-                 batch times, its checkpoint reloaded bit-equal and served
-                 by DMCPredictor.from_checkpoint; B2's launches over the
-                 phase
+                 batch times and the kernels' launches counted around it,
+                 its checkpoint reloaded bit-equal and served by
+                 DMCPredictor.from_checkpoint
   9. gan         dmcnet_GAN training at the width of
                  examples/hmdb51_gan/run.sh (batch 40 x 3 at 224,
                  DenseNetTiny + ResNet-18 + Discriminator, lr 0.001,
@@ -67,11 +67,14 @@ Phases:
                  losses and accuracies, f64 parameters), a frozen D step
                  (classifier bit-unchanged, its Adam step count moved), D
                  and G step times, clips/s of a D+G pair and peak memory in
-                 fp32, TF32 and bf16, the cli.train loop with gan=True (2
-                 epochs x 2 batches), its checkpoint's optimizer_d
-                 reloaded, scored by cli.test --arch_d on the card and on
-                 the CPU (G adversarial accuracy), served; B2's launches
-                 over the phase
+                 fp32, TF32 and bf16, the cli.train loop with GAN options
+                 (2 epochs x 2 batches) and the kernels' launches counted
+                 around it, its checkpoint's optimizer_d reloaded, scored
+                 by cli.test --arch_d on the card and on the CPU (G
+                 adversarial accuracy), served.  The training loops' B2
+                 launches come from the synthetic datasets, which
+                 accumulate their GOPs on the card; the recipes' own
+                 datasets (--no-accumulation) launch none
  10. i3d         the I3D evaluation recipe (examples/i3d/eval.sh: HMDB-51,
                  flow+mp4, DenseNetTiny, clip 250, frame interval 1,
                  mv_minmaxnorm, accumulate 0, ds_factor 16, batch 1, 224²)
@@ -146,9 +149,13 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 5e-4, 5e-6
 TRAIN_TIMED_STEPS = 5
 LONG_EPOCH_BATCHES = 8
+# Card vs CPU steps run on the first CHECK_VIDEOS videos of a batch; the
+# training phases' cli.train loops run 2 epochs x 2 batches.
+CHECK_VIDEOS = 4
+LOOP_FLAGS = ["--epochs", "2", "--epoch-thre", "1", "--eval-freq", "1",
+              "--workers", "8", "--batch-size", str(BATCH)]
 # The GAN phase: examples/hmdb51_gan/run.sh's flags (its --weights aside),
-# its card-vs-CPU check on GAN_CHECK_VIDEOS videos, and the test command's
-# 3 segments x 10 crops over GAN_TEST_VIDEOS videos.
+# and the test command's 3 segments x 10 crops over GAN_TEST_VIDEOS videos.
 GAN_MODEL = ["--data-name", "hmdb51", "--representation", "mv",
              "--arch", "resnet18", "--arch_estimator", "DenseNetTiny",
              "--arch_d", "Discriminator", "--no-accumulation",
@@ -157,7 +164,7 @@ GAN_MODEL = ["--data-name", "hmdb51", "--representation", "mv",
 GAN_RECIPE = GAN_MODEL + ["--num_segments", str(SEGMENTS), "--lr", "0.001",
                           "--lr-adv-g", "1", "--lr-adv-d", "1",
                           "--lr_d_mult", "0.01"]
-GAN_CHECK_VIDEOS, GAN_TEST_VIDEOS = 4, 4
+GAN_TEST_VIDEOS = 4
 # The I3D evaluation recipe (examples/i3d/eval.sh), at full width.
 I3D_FLAGS = ["--dataset", "HMDB51", "--split", "1", "--clip-length", "250",
              "--frame-interval", "1", "--modality", "flow+mp4",
@@ -593,18 +600,203 @@ def _equal_optimizer_states(a, b):
                    for k, v in st.items()) for i, st in sa["state"].items())
 
 
-def train_phase(torch, bt, dev, gops):
-    """8. dmcnet training at the HMDB-51 recipe's width, with the loop's
-    checkpoints in a temporary directory of the checkout."""
+def in_workdir(fn, *args):
+    """fn(*args, workdir), with a temporary directory of the checkout for
+    the files the phase writes."""
     import os
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(
             __file__))) as workdir:
-        return _train_phase(torch, bt, dev, gops, workdir)
+        return fn(*args, workdir)
 
 
-def _train_phase(torch, bt, dev, gops, workdir):
+def _recipe_setup(torch, dev, gops, args):
+    """The training phases' pool of synthetic GOPs, and one train and one
+    eval batch of BATCH x SEGMENTS at SIZE on the card, drawn from
+    synthetic datasets whose flow target is the accumulated MV."""
+    from dmcnet_tpu_torch.data.dmc_dataset import (
+        BatchAssembler,
+        augment_eval_batch,
+        augment_train_batch,
+    )
+
+    t0 = time.perf_counter()
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = {}
+    train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
+                                 flow_from_mv=True)
+    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
+                               flow_from_mv=True)
+    aug = dict(representation="mv", flow_ds_factor=args.flow_ds_factor,
+               input_size=SIZE, device=dev)
+    batch = augment_train_batch(BatchAssembler(
+        train_ds, input_size=SIZE, seed=0).train_batch(range(BATCH)), **aug)
+    val_batch = augment_eval_batch(BatchAssembler(
+        val_ds, input_size=SIZE, test_crops=1).eval_batch(range(BATCH)),
+        **aug)
+    torch.cuda.synchronize()
+    print(f"  set-up (a {BATCH} x {SEGMENTS} train and eval batch at {SIZE} "
+          "from synthetic datasets, flow target = accumulated MV) "
+          f"{time.perf_counter() - t0:.2f} s")
+    return pool, batch, val_batch
+
+
+def _card_vs_cpu(torch, dev, batch, build, run, what, shown):
+    """`run(model, batch)` -> metrics for a `build()` model on the card and
+    on the CPU, over the first CHECK_VIDEOS videos of `batch`: in float32
+    (TF32 off) the metrics agree within TRAIN_LOSS_RTOL; in float64 those
+    and every parameter and BN statistic (see TRAIN_PARAM_RTOL)."""
+    n = CHECK_VIDEOS
+    for dtype in (torch.float32, torch.float64):
+        small = {k: v[:n].to(dtype) if v.is_floating_point() else v[:n]
+                 for k, v in batch.items()}
+        sides = []
+        for device in (dev, "cpu"):
+            model = build().to(device, dtype)
+            sides.append((model, run(model, {k: v.to(device)
+                                             for k, v in small.items()})))
+        (gpu_model, got), (cpu_model, want) = sides
+        for k, w in want.items():
+            g, w = float(got[k]), float(w)
+            check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
+                  f"{what} {k} ({dtype}): card {g} != CPU {w}")
+        checked = ", ".join(want)
+        if dtype == torch.float64:
+            _state_close(torch, cpu_model.state_dict(),
+                         gpu_model.state_dict(), f"{what}, card vs CPU")
+            checked += (f"; parameters and BN statistics within rtol "
+                        f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL}")
+        print(f"  {what}, {n} videos x {SEGMENTS} at {SIZE}, "
+              f"{str(dtype)[6:]}: " + ", ".join(
+                  f"{k} card {float(got[k]):.7f} / CPU {float(want[k]):.7f}"
+                  for k in shown)
+              + f"; agree: {checked} (rtol {TRAIN_LOSS_RTOL}, TF32 off)")
+
+
+def _precision_times(torch, make_fns, trained, smi):
+    """Median ms (TRAIN_TIMED_STEPS, CUDA events) and peak memory of each
+    function of `make_fns(bf16)` at BATCH x SEGMENTS, in fp32 (TF32 off),
+    TF32 and bf16 autocast, beside the memory already allocated when it
+    starts (model, optimizer state, batches), and clips/s over one call of
+    each function named in `trained`."""
+    clips = BATCH * SEGMENTS
+    timing = {}
+    print(f"  step times on {smi} (medians of {TRAIN_TIMED_STEPS}, CUDA "
+          f"events, {clips} clips a step):")
+    for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
+                              ("bf16", False, True)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        row = {}
+        fns = make_fns(bf16)
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            row[name + "_resident_bytes"] = torch.cuda.memory_allocated()
+            row[name + "_ms"] = median_ms(fn, TRAIN_TIMED_STEPS, torch)
+            row[name + "_peak_bytes"] = torch.cuda.max_memory_allocated()
+        row["clips_per_s"] = len(trained) * clips / sum(
+            row[name + "_ms"] for name in trained) * 1e3
+        timing[label] = row
+        print(f"  {label}: " + ", ".join(
+            f"{name} {row[name + '_ms']:.3f} ms (peak memory "
+            f"{row[name + '_peak_bytes'] / 2**30:.3f} GiB, of which "
+            f"{row[name + '_resident_bytes'] / 2**30:.3f} resident before "
+            "it)" for name in fns)
+            + f"; {row['clips_per_s']:.1f} clips/s over "
+            + " + ".join(trained))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return timing
+
+
+def _train_loop(torch, bt, train_cli, args, pool, dev):
+    """The `cli.train` loop — dmcnet_GAN's when `args` name a discriminator
+    — for 2 epochs x 2 batches with 8 loader threads, over synthetic
+    datasets with a cache of their own: their loader threads accumulate
+    every GOP anew, and the kernels' counts, set to 0 just before the loop
+    and read just after, are the loop's own.  Returns the result, the
+    loop's seconds, the counts, its validation dataset and its cache."""
+    cache = {}
+    train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
+                                 flow_from_mv=True)
+    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
+                               flow_from_mv=True)
+    train_cli.SAVE_FREQ = 1  # write after each epoch: the file then holds
+    # the state the loop ends with
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+    t0 = time.perf_counter()
+    result = train_cli.train(args, train_ds, val_ds, device=dev,
+                             input_size=SIZE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    check(len(result.epochs) == 2, "the loop did not run 2 epochs")
+    batches = "a D and a G batch" if getattr(args, "arch_d", None) else \
+        f"{len(train_ds) // BATCH} batches"
+    for e in result.epochs:
+        print(f"  loop epoch {e['epoch']}: data time {e['data_time']:.4f} s, "
+              f"batch time {e['batch_time']:.4f} s (averages over {batches},"
+              " host clock)")
+    print(f"  loop: 2 epochs with evaluation in {loop_s:.2f} s; launches in "
+          f"the loop {launches} (B2 from the synthetic datasets' loader "
+          "threads, which accumulate each GOP on the card)")
+    check(launches["backtrace_gop_cells"] >= 1, "the loop did not launch B2")
+    return result, loop_s, launches, val_ds, cache
+
+
+def _reload_and_serve(torch, dev, train_cli, args, result, batch):
+    """The loop's last checkpoint reloads bit-equal — parameters, BN buffers
+    and every optimizer's Adam state, `optimizer_d` among them with a
+    discriminator — and `DMCPredictor.from_checkpoint` serves it (dropping
+    a discriminator) with the trained model's logits on `batch`."""
+    import os
+
+    from dmcnet_tpu_torch.models.tsn import segment_consensus
+    from dmcnet_tpu_torch.serving import DMCPredictor
+    from dmcnet_tpu_torch.train import checkpoints as tckpt
+    from dmcnet_tpu_torch.train import optimizers as topt
+
+    ckpt = result.checkpoint
+    check(ckpt is not None and os.path.exists(ckpt), "no checkpoint written")
+    model2 = train_cli.build_model(args, NUM_CLASS, SIZE).to(dev)
+    opts2 = topt.make_optimizers(model2, args.lr_cls_mult, args.lr_mse_mult,
+                                 getattr(args, "lr_d_mult", None))
+    meta = tckpt.load_checkpoint(ckpt, model2, opts2)
+    check(meta["epoch"] == 2, f"checkpoint epoch {meta['epoch']}")
+    sd, sd2 = result.model.state_dict(), model2.state_dict()
+    check(all(torch.equal(v, sd2[k]) for k, v in sd.items()),
+          "reloaded parameters or BN buffers differ")
+    check(len(opts2) == len(result.optimizers)
+          and all(bool(o.state) for o in opts2)
+          and all(_equal_optimizer_states(a, b)
+                  for a, b in zip(result.optimizers, opts2)),
+          "reloaded optimizer states differ")
+    pred = DMCPredictor.from_checkpoint(ckpt, num_class=NUM_CLASS,
+                                        device=dev)
+    with torch.inference_mode():
+        result.model.eval()
+        want = result.model(batch["mv"], batch["residual"])[0]
+        got = pred.model.classify(pred.model.generate(
+            batch["mv"], batch["residual"]))
+        scores = segment_consensus(got, SEGMENTS)
+    check(tuple(scores.shape) == (BATCH, NUM_CLASS)
+          and bool(torch.isfinite(scores).all()), "served scores")
+    check(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          "served logits differ from the trained model's")
+    print(f"  checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}): "
+          f"parameters, BN buffers and {len(opts2)} Adam states reload "
+          f"bit-equal; DMCPredictor.from_checkpoint scores {BATCH} videos, "
+          f"logits max |diff| {float((got - want).abs().max()):.3g} from the "
+          "trained model")
+    return ckpt
+
+
+def train_phase(torch, bt, dev, gops, smi, workdir):
     """8. dmcnet training at the HMDB-51 recipe's width: one train step on
     the card against the CPU, a freeze-phase step, step and eval times in
     fp32, TF32 and bf16, the `cli.train` loop over synthetic datasets with
@@ -614,43 +806,14 @@ def _train_phase(torch, bt, dev, gops, workdir):
 
     from dmcnet_tpu_torch.cli import train as train_cli
     from dmcnet_tpu_torch.cli.train_options import build_parser
-    from dmcnet_tpu_torch.data.dmc_dataset import (
-        BatchAssembler,
-        augment_eval_batch,
-        augment_train_batch,
-    )
-    from dmcnet_tpu_torch.models.tsn import segment_consensus
-    from dmcnet_tpu_torch.serving import DMCPredictor
-    from dmcnet_tpu_torch.train import checkpoints as tckpt
     from dmcnet_tpu_torch.train import engine
     from dmcnet_tpu_torch.train import optimizers as topt
 
     phase("train")
-    t0 = time.perf_counter()
-    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
-                                  "4x4 blocks")]
-    cache = {}  # not the data phase's: this phase accumulates its own GOPs
-    bt.backtrace_gop_cells.launches = 0
-    train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
-                                 flow_from_mv=True)
-    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
-                               flow_from_mv=True)
-    args = build_parser().parse_args(TRAIN_RECIPE + [
-        "--epochs", "2", "--epoch-thre", "1", "--eval-freq", "1",
-        "--workers", "8", "--batch-size", str(BATCH),
+    t_phase = time.perf_counter()
+    args = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS + [
         "--model-prefix", os.path.join(workdir, "model")])
-    aug = dict(representation="mv", flow_ds_factor=args.flow_ds_factor,
-               input_size=SIZE)
-    raw = BatchAssembler(train_ds, input_size=SIZE, seed=0).train_batch(
-        range(BATCH))
-    batch = augment_train_batch(raw, device=dev, **aug)
-    val_raw = BatchAssembler(val_ds, input_size=SIZE, test_crops=1) \
-        .eval_batch(range(BATCH))
-    val_batch = augment_eval_batch(val_raw, device=dev, **aug)
-    torch.cuda.synchronize()
-    print(f"  set-up (2 synthetic datasets, a {BATCH} x {SEGMENTS} train and "
-          f"eval batch at {SIZE}, flow target = accumulated MV) "
-          f"{time.perf_counter() - t0:.2f} s")
+    pool, batch, val_batch = _recipe_setup(torch, dev, gops, args)
 
     def stepper(model, bf16=False):
         opts = topt.make_optimizers(model, args.lr_cls_mult,
@@ -661,36 +824,15 @@ def _train_phase(torch, bt, dev, gops, workdir):
         return (opts, engine.make_train_step(model, *opts, **kw),
                 engine.make_eval_step(model, **kw))
 
-    # (a) one step on the card against the same step on the CPU, 4 videos:
-    # in float32 (TF32 off) the losses and accuracies; in float64 those and
-    # every parameter and BN statistic (see TRAIN_PARAM_RTOL)
-    n_cpu = 4
-    for dtype in (torch.float32, torch.float64):
-        gpu_model = train_cli.build_model(args, NUM_CLASS).to(dev, dtype)
-        cpu_model = train_cli.build_model(args, NUM_CLASS).to(dtype=dtype)
-        small = {k: v[:n_cpu].to(dtype) if v.is_floating_point()
-                 else v[:n_cpu] for k, v in batch.items()}
-        got = stepper(gpu_model)[1](small, True)
-        want = stepper(cpu_model)[1]({k: v.cpu() for k, v in small.items()},
-                                     True)
-        for k in ("loss", "loss_cls", "loss_mse", "top1", "top5"):
-            g, w = float(got[k]), float(want[k])
-            check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
-                  f"train step {k} ({dtype}): card {g} != CPU {w}")
-        what = "losses and top-1/5"
-        if dtype == torch.float64:
-            _state_close(torch, cpu_model.state_dict(),
-                         gpu_model.state_dict(), "train step, card vs CPU")
-            what += (f", parameters and BN statistics within rtol "
-                     f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL}")
-        print(f"  one train step, {n_cpu} videos x {SEGMENTS} at {SIZE}, "
-              f"{str(dtype)[6:]}: loss card {float(got['loss']):.7f} / CPU "
-              f"{float(want['loss']):.7f}; {what} (losses rtol "
-              f"{TRAIN_LOSS_RTOL}, TF32 off)")
+    # (a) one step on the card against the same step on the CPU
+    _card_vs_cpu(torch, dev, batch,
+                 lambda: train_cli.build_model(args, NUM_CLASS, SIZE),
+                 lambda m, b: stepper(m)[1](b, True), "one train step",
+                 ("loss",))
 
     # (b) a freeze-phase step: the classifier and its Adam state untouched
-    model = train_cli.build_model(args, NUM_CLASS).to(dev)
-    opts, step, eval_step = stepper(model)
+    model = train_cli.build_model(args, NUM_CLASS, SIZE).to(dev)
+    opts, step, _ = stepper(model)
     step(batch, True)  # so that the classifier's Adam state exists
     cls_before = {k: v.clone() for k, v in
                   model.base_model.named_parameters()}
@@ -713,45 +855,19 @@ def _train_phase(torch, bt, dev, gops, workdir):
           f"and Adam state bit-unchanged; {moved} generator tensors moved")
 
     # (c) step and eval times at the recipe's batch
-    clips = BATCH * SEGMENTS
-    timing = {}
-    for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
-                              ("bf16", False, True)):
-        torch.backends.cudnn.allow_tf32 = tf32
-        torch.backends.cuda.matmul.allow_tf32 = tf32
+    def timed(bf16):
         _, t_step, t_eval = stepper(model, bf16=bf16)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        step_ms = median_ms(lambda: t_step(batch, True), TRAIN_TIMED_STEPS,
-                            torch)
-        eval_ms = median_ms(lambda: t_eval(val_batch), TRAIN_TIMED_STEPS,
-                            torch)
-        peak = torch.cuda.max_memory_allocated()
-        timing[label] = {"step_ms": step_ms, "clips_per_s": clips / step_ms
-                         * 1e3, "eval_ms": eval_ms, "peak_bytes": peak}
-        print(f"  {label}: train step {step_ms:.3f} ms (median of "
-              f"{TRAIN_TIMED_STEPS}, CUDA events) = "
-              f"{clips / step_ms * 1e3:.1f} clips/s; eval step "
-              f"{eval_ms:.3f} ms; peak memory {peak / 2**30:.3f} GiB")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+        return {"train_step": lambda: t_step(batch, True),
+                "eval_step": lambda: t_eval(val_batch)}
 
-    # (d) the cli.train loop: 2 epochs x 2 batches, 8 loader threads
-    train_cli.SAVE_FREQ = 1  # write after each epoch: the file then holds
-    # the state the loop ends with
-    t0 = time.perf_counter()
-    result = train_cli.train(args, train_ds, val_ds, device=dev,
-                             input_size=SIZE)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    check(len(result.epochs) == 2, "the loop did not run 2 epochs")
-    for e in result.epochs:
-        print(f"  loop epoch {e['epoch']}: data time {e['data_time']:.4f} s, "
-              f"batch time {e['batch_time']:.4f} s (averages over "
-              f"{len(train_ds) // BATCH} batches, host clock)")
-    print(f"  loop: 2 epochs with evaluation in {loop_s:.2f} s")
-    # the same loop over one longer frozen epoch: whether the loader keeps
-    # up once its threads run ahead of the first batch
+    timing = _precision_times(torch, timed, ("train_step",), smi)
+    del model, opts, step
+
+    # (d) the cli.train loop, then one longer frozen epoch over the loop's
+    # cache: whether the loader keeps up once its threads run ahead of the
+    # first batch
+    result, loop_s, launches, val_ds, cache = _train_loop(
+        torch, bt, train_cli, args, pool, dev)
     long_args = build_parser().parse_args(TRAIN_RECIPE + [
         "--epochs", "1", "--workers", "8", "--batch-size", str(BATCH),
         "--model-prefix", os.path.join(workdir, "long")])
@@ -772,43 +888,12 @@ def _train_phase(torch, bt, dev, gops, workdir):
           + " ".join(f"{t:.3f}" for t in long_epoch["data_times"]))
 
     # (e) the checkpoint reloads bit-equal and serves
-    ckpt = result.checkpoint
-    check(ckpt is not None and os.path.exists(ckpt), "no checkpoint written")
-    model2 = train_cli.build_model(args, NUM_CLASS).to(dev)
-    opts2 = topt.make_optimizers(model2, args.lr_cls_mult, args.lr_mse_mult)
-    meta = tckpt.load_checkpoint(ckpt, model2, opts2)
-    check(meta["epoch"] == 2, f"checkpoint epoch {meta['epoch']}")
-    sd, sd2 = result.model.state_dict(), model2.state_dict()
-    check(all(torch.equal(v, sd2[k]) for k, v in sd.items()),
-          "reloaded parameters or BN buffers differ")
-    check(all(_equal_optimizer_states(a, b)
-              for a, b in zip(result.optimizers, opts2)),
-          "reloaded optimizer state differs")
-    pred = DMCPredictor.from_checkpoint(ckpt, num_class=NUM_CLASS,
-                                        device=dev)
-    with torch.inference_mode():
-        result.model.eval()
-        want = result.model(val_batch["mv"], val_batch["residual"])[0]
-        got = pred.model.classify(pred.model.generate(
-            val_batch["mv"], val_batch["residual"]))
-        scores = segment_consensus(got, SEGMENTS)
-    check(tuple(scores.shape) == (BATCH, NUM_CLASS)
-          and bool(torch.isfinite(scores).all()), "served scores")
-    check(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
-          "served logits differ from the trained model's")
-    print(f"  checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}): "
-          "parameters, BN buffers and both Adam states reload bit-equal; "
-          f"DMCPredictor.from_checkpoint scores {BATCH} videos, logits max "
-          f"|diff| {float((got - want).abs().max()):.3g} from the trained "
-          "model")
-
-    # (f) B2 on the phase's path
-    b2 = bt.backtrace_gop_cells.launches
-    print(f"  backtrace_gop_cells launches over the phase: {b2}")
-    check(b2 >= 1, "the train phase did not launch B2")
+    _reload_and_serve(torch, dev, train_cli, args, result, val_batch)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  train phase {phase_s:.1f} s")
     return {"timing": timing, "epochs": result.epochs, "loop_s": loop_s,
             "long_epoch": long_epoch, "long_epoch_s": long_s,
-            "steady": steady, "b2_launches": b2}
+            "steady": steady, "launches": launches, "phase_s": phase_s}
 
 
 def _dropout_off(torch, model):
@@ -820,24 +905,12 @@ def _dropout_off(torch, model):
     return model
 
 
-def gan_phase(torch, bt, dev, gops, smi):
-    """9. dmcnet_GAN training at examples/hmdb51_gan/run.sh's width, with
-    the loop's and the test command's files in a temporary directory of the
-    checkout."""
-    import os
-    import tempfile
-
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(
-            __file__))) as workdir:
-        return _gan_phase(torch, bt, dev, gops, smi, workdir)
-
-
-def _gan_phase(torch, bt, dev, gops, smi, workdir):
-    """9. One D and one G step on the card against the CPU, a frozen D step,
-    D and G step times in fp32, TF32 and bf16, the `cli.train` loop with
-    `gan=True`, its checkpoint reloaded, scored by `cli.test --arch_d` on
-    the card and on the CPU, and served.  Returns the numbers for the
-    summary line."""
+def gan_phase(torch, bt, dev, gops, smi, workdir):
+    """9. dmcnet_GAN training at examples/hmdb51_gan/run.sh's width: one D
+    and one G step on the card against the CPU, a frozen D step, D and G
+    step times in fp32, TF32 and bf16, the `cli.train` loop, its checkpoint
+    reloaded, scored by `cli.test --arch_d` on the card and on the CPU, and
+    served.  Returns the numbers for the summary line."""
     import contextlib
     import io
     import os
@@ -846,36 +919,14 @@ def _gan_phase(torch, bt, dev, gops, smi, workdir):
     from dmcnet_tpu_torch.cli import test as test_cli
     from dmcnet_tpu_torch.cli import train as train_cli
     from dmcnet_tpu_torch.cli.train_options import build_parser
-    from dmcnet_tpu_torch.data.dmc_dataset import (
-        BatchAssembler,
-        augment_train_batch,
-    )
-    from dmcnet_tpu_torch.serving import DMCPredictor
-    from dmcnet_tpu_torch.train import checkpoints as tckpt
     from dmcnet_tpu_torch.train import optimizers as topt
     from dmcnet_tpu_torch.train.engine_gan import make_gan_train_steps
 
     phase("gan")
     t_phase = time.perf_counter()
-    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
-                                  "4x4 blocks")]
-    cache = {}  # the phase accumulates its own GOPs
-    bt.backtrace_gop_cells.launches = 0
-    train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
-                                 flow_from_mv=True)
-    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
-                               flow_from_mv=True)
-    args = build_parser(gan=True).parse_args(GAN_RECIPE + [
-        "--epochs", "2", "--epoch-thre", "1", "--eval-freq", "1",
-        "--workers", "8", "--batch-size", str(BATCH),
+    args = build_parser(gan=True).parse_args(GAN_RECIPE + LOOP_FLAGS + [
         "--model-prefix", os.path.join(workdir, "gan")])
-    raw = BatchAssembler(train_ds, input_size=SIZE, seed=0).train_batch(
-        range(BATCH))
-    batch = augment_train_batch(raw, "mv", flow_ds_factor=args.flow_ds_factor,
-                                input_size=SIZE, device=dev)
-    torch.cuda.synchronize()
-    print(f"  set-up (2 synthetic datasets, a {BATCH} x {SEGMENTS} train "
-          f"batch at {SIZE}) {time.perf_counter() - t_phase:.2f} s")
+    pool, batch, val_batch = _recipe_setup(torch, dev, gops, args)
 
     def stepper(model, bf16=False, frozen=False):
         opts = topt.make_optimizers(model, args.lr_cls_mult,
@@ -888,41 +939,15 @@ def _gan_phase(torch, bt, dev, gops, smi, workdir):
             lr_adv_g=args.lr_adv_g, lr_adv_d=args.lr_adv_d,
             lr_mse_w=args.lr_mse, loss_mse=args.loss_mse, bf16=bf16)
 
-    # (a) a D and a G step on the card against the CPU, dropout off: in
-    # float32 (TF32 off) losses and accuracies, in float64 those and every
-    # parameter and BN statistic (TRAIN_PARAM_RTOL)
-    n = GAN_CHECK_VIDEOS
-    for dtype in (torch.float32, torch.float64):
-        small = {k: v[:n].to(dtype) if v.is_floating_point() else v[:n]
-                 for k, v in batch.items()}
-        sides = []
-        for device in (dev, "cpu"):
-            model = _dropout_off(torch, train_cli.build_model(
-                args, NUM_CLASS, SIZE)).to(device, dtype)
-            _, d_step, g_step = stepper(model)
-            b = {k: v.to(device) for k, v in small.items()}
-            sides.append((model, {**{"D " + k: v for k, v in
-                                     d_step(b).items()},
-                                  **{"G " + k: v for k, v in
-                                     g_step(b).items()}}))
-        (gpu_model, got), (cpu_model, want) = sides
-        for k, w in want.items():
-            g, w = float(got[k]), float(w)
-            check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
-                  f"GAN {k} ({dtype}): card {g} != CPU {w}")
-        what = "losses and accuracies"
-        if dtype == torch.float64:
-            _state_close(torch, cpu_model.state_dict(),
-                         gpu_model.state_dict(), "GAN D+G steps, card vs CPU")
-            what += (f", parameters and BN statistics within rtol "
-                     f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL}")
-        print(f"  D + G step, {n} videos x {SEGMENTS} at {SIZE}, "
-              f"{str(dtype)[6:]}, dropout off: D loss card "
-              f"{float(got['D loss']):.7f} / CPU {float(want['D loss']):.7f},"
-              f" G loss card {float(got['G loss']):.7f} / CPU "
-              f"{float(want['G loss']):.7f}; {what} (rtol {TRAIN_LOSS_RTOL},"
-              " TF32 off)")
-    del sides, gpu_model, cpu_model
+    # (a) a D and a G step on the card against the CPU, dropout off
+    def d_then_g(model, b):
+        _, d_step, g_step = stepper(model)
+        return {**{"D " + k: v for k, v in d_step(b).items()},
+                **{"G " + k: v for k, v in g_step(b).items()}}
+
+    _card_vs_cpu(torch, dev, batch, lambda: _dropout_off(
+        torch, train_cli.build_model(args, NUM_CLASS, SIZE)), d_then_g,
+        "D + G step, dropout off", ("D loss", "G loss"))
 
     # (b) a frozen D step: the classifier at lr 0 keeps its parameters
     # while its Adam moments and step count move; the discriminator trains
@@ -951,67 +976,20 @@ def _gan_phase(torch, bt, dev, gops, smi, workdir):
     del opt_cls, d_step
 
     # (c) D and G step times at the recipe's batch
-    clips = BATCH * SEGMENTS
-    timing = {}
-    print(f"  step times on {smi}:")
-    for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
-                              ("bf16", False, True)):
-        torch.backends.cudnn.allow_tf32 = tf32
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        _, d_step, g_step = stepper(model, bf16=bf16)
-        row = {}
-        for kind, fn in (("d", d_step), ("g", g_step)):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            row[kind + "_ms"] = median_ms(lambda: fn(batch),
-                                          TRAIN_TIMED_STEPS, torch)
-            row[kind + "_peak_bytes"] = torch.cuda.max_memory_allocated()
-        row["pair_clips_per_s"] = 2 * clips / (row["d_ms"] + row["g_ms"]) \
-            * 1e3
-        timing[label] = row
-        print(f"  {label}: D step {row['d_ms']:.3f} ms, G step "
-              f"{row['g_ms']:.3f} ms (medians of {TRAIN_TIMED_STEPS}, CUDA "
-              f"events, {clips} clips) = {row['pair_clips_per_s']:.1f} "
-              f"clips/s over a D+G pair; peak memory D "
-              f"{row['d_peak_bytes'] / 2**30:.3f} GiB, G "
-              f"{row['g_peak_bytes'] / 2**30:.3f} GiB")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    del model, d_step, g_step
+    def timed(bf16):
+        _, t_d, t_g = stepper(model, bf16=bf16)
+        return {"d_step": lambda: t_d(batch), "g_step": lambda: t_g(batch)}
 
-    # (d) the cli.train loop with gan=True: 2 epochs x 2 batches (D, G)
-    train_cli.SAVE_FREQ = 1  # the file then holds the state the loop ends
-    # with
-    t0 = time.perf_counter()
-    result = train_cli.train(args, train_ds, val_ds, device=dev,
-                             input_size=SIZE, gan=True)
-    torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t0
-    check(len(result.epochs) == 2, "the GAN loop did not run 2 epochs")
-    for e in result.epochs:
-        print(f"  loop epoch {e['epoch']}: data time {e['data_time']:.4f} s, "
-              f"batch time {e['batch_time']:.4f} s (averages over a D and a "
-              "G batch, host clock)")
-    print(f"  loop: 2 epochs with evaluation in {loop_s:.2f} s")
+    timing = _precision_times(torch, timed, ("d_step", "g_step"), smi)
+    del model
 
-    # (e) the checkpoint: three optimizers reload, cli.test --arch_d scores
-    # it on the card and on the CPU, DMCPredictor serves it
-    ckpt = result.checkpoint
-    check(ckpt is not None and os.path.exists(ckpt), "no GAN checkpoint")
-    model2 = train_cli.build_model(args, NUM_CLASS, SIZE).to(dev)
-    opts2 = topt.make_optimizers(model2, args.lr_cls_mult, args.lr_mse_mult,
-                                 args.lr_d_mult)
-    meta = tckpt.load_checkpoint(ckpt, model2, opts2)
-    check(meta["epoch"] == 2, f"GAN checkpoint epoch {meta['epoch']}")
-    sd, sd2 = result.model.state_dict(), model2.state_dict()
-    check(all(torch.equal(v, sd2[k]) for k, v in sd.items()),
-          "reloaded GAN parameters or BN buffers differ")
-    check(len(result.optimizers) == 3 and bool(opts2[2].state)
-          and all(_equal_optimizer_states(a, b)
-                  for a, b in zip(result.optimizers, opts2)),
-          "reloaded optimizer states (optimizer_d among them) differ")
-    del model2, opts2
+    # (d) the cli.train loop: 2 epochs x 2 batches (D, G); (e) its
+    # checkpoint reloads and serves
+    result, loop_s, launches, _, cache = _train_loop(
+        torch, bt, train_cli, args, pool, dev)
+    ckpt = _reload_and_serve(torch, dev, train_cli, args, result, val_batch)
 
+    # (f) cli.test --arch_d scores the checkpoint on the card and the CPU
     test_list = os.path.join(workdir, "test_list.txt")
     with open(test_list, "w") as f:
         f.writelines(f"synthetic/{v}.avi 0 {v % NUM_CLASS}\n"
@@ -1055,33 +1033,13 @@ def _gan_phase(torch, bt, dev, gops, smi, workdir):
           f"card and {g_cpu}% on the CPU; scores max |diff| "
           f"{float(np.abs(s_card - s_cpu).max()):.3g}; {t_card:.2f} s card, "
           f"{t_cpu:.2f} s CPU")
-
-    pred = DMCPredictor.from_checkpoint(ckpt, num_class=NUM_CLASS,
-                                        device=dev)
-    with torch.inference_mode():
-        result.model.eval()
-        want = result.model(batch["mv"], batch["residual"])[0]
-        got = pred.model.classify(pred.model.generate(batch["mv"],
-                                                      batch["residual"]))
-    check(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
-          "served logits differ from the trained GAN model's")
-    print(f"  checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}): "
-          "parameters, BN buffers and all three Adam states (optimizer_d "
-          "too) reload bit-equal; DMCPredictor.from_checkpoint drops the "
-          f"discriminator and scores {BATCH} videos, logits max |diff| "
-          f"{float((got - want).abs().max()):.3g}")
-
-    # (f) B2 on the phase's path
-    b2 = bt.backtrace_gop_cells.launches
     phase_s = time.perf_counter() - t_phase
-    print(f"  backtrace_gop_cells launches over the phase: {b2}; gan phase "
-          f"{phase_s:.1f} s")
-    check(b2 >= 1, "the gan phase did not launch B2")
+    print(f"  gan phase {phase_s:.1f} s")
     return {"timing": timing, "epochs": [
         {k: e[k] for k in ("epoch", "data_time", "batch_time")}
         for e in result.epochs], "loop_s": loop_s,
         "g_adv_card": g_card, "g_adv_cpu": g_cpu, "test_card_s": t_card,
-        "test_cpu_s": t_cpu, "b2_launches": b2, "phase_s": phase_s}
+        "test_cpu_s": t_cpu, "launches": launches, "phase_s": phase_s}
 
 
 def synthetic_clip_dataset(pool, num_videos, clip_length, device, cache):
@@ -1165,18 +1123,9 @@ def i3d_flops(torch, net, x):
     return counts["gen"], counts["i3d"]
 
 
-def i3d_phase(torch, bt, dev, gops):
+def i3d_phase(torch, bt, dev, gops, workdir):
     """10. I3D whole-video evaluation at the recipe's width, with its files
-    in a temporary directory of the checkout."""
-    import os
-    import tempfile
-
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(
-            __file__))) as workdir:
-        return _i3d_phase(torch, bt, dev, gops, workdir)
-
-
-def _i3d_phase(torch, bt, dev, gops, workdir):
+    in `workdir`."""
     import os
 
     from dmcnet_tpu_torch.cli import evaluate_video_i3d as eval_cli
@@ -1670,9 +1619,9 @@ def main():
 
     codec_times = codec_phase(torch, bt, dev, gops)
     data = data_phase(torch, bt, dev, gops, pred, rng)
-    train = train_phase(torch, bt, dev, gops)
-    gan = gan_phase(torch, bt, dev, gops, smi)
-    i3d = i3d_phase(torch, bt, dev, gops)
+    train = in_workdir(train_phase, torch, bt, dev, gops, smi)
+    gan = in_workdir(gan_phase, torch, bt, dev, gops, smi)
+    i3d = in_workdir(i3d_phase, torch, bt, dev, gops)
 
     # 11. videos --------------------------------------------------------------
     phase("videos")

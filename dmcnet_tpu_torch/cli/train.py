@@ -118,12 +118,14 @@ def flush_pending(pending, meters):
     pending.clear()
 
 
-def train(args, train_ds, val_ds, *, device, input_size=224, gan=False):
+def train(args, train_ds, val_ds, *, device, input_size=224):
     """The epoch loop of reference main() over `train_ds` / `val_ds`
-    (CoviarDataset contract) on `device`; with `gan`, the dmcnet_GAN loop
-    (`args` from `build_parser(gan=True)`).  `input_size` is the
-    reference's fixed 224 (model.py:306) unless a caller shrinks it."""
+    (CoviarDataset contract) on `device`; the dmcnet_GAN loop when `args`
+    name a discriminator (`build_parser(gan=True)`), which also gives the
+    model one.  `input_size` is the reference's fixed 224 (model.py:306)
+    unless a caller shrinks it."""
     device = torch.device(device)
+    gan = getattr(args, "arch_d", None) is not None
     num_class = num_classes_for(args.data_name)
     model = build_model(args, num_class, input_size).to(device)
     if args.packed_gen:
@@ -283,7 +285,8 @@ def validate(val_asm, eval_step, batch_size, aug):
 
 
 def main(argv=None, gan=False, input_size=224):
-    """`gan` selects the dmcnet_GAN trainer; `input_size` defaults to the
+    """`gan` selects the dmcnet_GAN parser, whose `--arch_d` makes
+    `train()` the dmcnet_GAN trainer; `input_size` defaults to the
     reference's fixed 224, and tests shrink it."""
     args = build_parser(gan=gan).parse_args(argv)
     print("Training arguments:")
@@ -307,7 +310,7 @@ def main(argv=None, gan=False, input_size=224):
     device = device_for(args)
     train_ds, val_ds = make_datasets(args)
     return train(args, train_ds, val_ds, device=device,
-                 input_size=input_size, gan=gan).best_prec1
+                 input_size=input_size).best_prec1
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""dmcnet_GAN training command: `cli/train.py` with `gan=True`, the
+"""dmcnet_GAN training command: `cli/train.py` with the GAN options, the
 counterpart of `dmcnet_tpu/cli/train_gan.py` (reference
 code/dmcnet_GAN/train.py)."""
 

@@ -200,7 +200,7 @@ def test_weights_from_dmcnet_checkpoint(corpus, tmp_path, capsys):
         _train_args(corpus, str(tmp_path / "gan"), epochs=0)
         + ["--weights", weights])
     result = train_cli.train(args, *train_cli.make_datasets(args),
-                             device="cpu", input_size=SIZE, gan=True)
+                             device="cpu", input_size=SIZE)
     sd = result.model.state_dict()
     n_d = sum(k.startswith("discriminator.") for k in sd)
     assert n_d == 4 * 2 + 3 * 5 + 2
