@@ -10,9 +10,10 @@ DenseNetTiny + ResNet-18 at 224x224, 51 classes, seeded random weights —
 over one 64-GOP chunk of synthetic 256x320, 12-frame GOPs (192 clips), and
 the input side — codec accumulation on the card and the data layer at the
 HMDB-51 recipe's width (examples/hmdb51_gen_flow/run.sh: batch 40, 3
-segments, mv, mv_minmaxnorm, input 224) through to logits, dmcnet
-training at that width, and I3D whole-video evaluation at the width of
-examples/i3d/eval.sh (250-frame clips at 224², DenseNetTiny, 51 classes).
+segments, mv, mv_minmaxnorm, input 224) through to logits, dmcnet and
+dmcnet_GAN training at that width, I3D whole-video evaluation at the width
+of examples/i3d/eval.sh (250-frame clips at 224², DenseNetTiny, 51
+classes), and I3D training at the width of examples/i3d/train.sh.
 Phases:
 
   1. device      card name, count, power limit (nvidia-smi); TF32 off
@@ -89,13 +90,31 @@ Phases:
                  reloaded through --load-weights bit-equal, and an RGB
                  model's 3-channel stem adapted; the launch counts of B1
                  and B2 read around the path (no TPU kernel lies on it)
- 11. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+ 11. i3d_train   I3D training at the width of examples/i3d/train.sh (clip
+                 64, batch 3, iter-size 32 at 224², Adam, dropout 0.85,
+                 DenseNetTiny + Discriminator, adv 1, detach, stage-1
+                 learning rates; seeded He-normal weights, since the
+                 recipe's --pretrained_3d file is not in the repository):
+                 a D and a G macro step of 2 microbatches card against CPU
+                 with dropout off (1 clip x 16 frames at 64², f32 losses,
+                 f64 parameters); D- and G-phase microstep times (one
+                 microbatch of 3 clips x 64 frames: forward, backward,
+                 optimizer step) in fp32, TF32 and bf16 with peak memory;
+                 one 32-microbatch D and G macro step fed from clips staged
+                 on the host (ms, clips/s, peak memory, the host assembly
+                 on its own line); the cli.train_i3d loop (--iter-size 2,
+                 2 epochs x 2 macro steps, the stage-2 swap at
+                 --epoch-thre 1) with its data and batch times and the
+                 launches of B1 and B2 counted around it (0: the clips
+                 accumulate on the host); its checkpoint scored by
+                 evaluate_video_i3d --load-weights on the card and the CPU
+ 12. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
 Any failure raises and exits non-zero.  The last lines are a `kernels` JSON
 object, a summary JSON object, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.  Needs no network; takes about 2 minutes
+`{"ok": true, "device": {...}}`.  Needs no network; takes about 4 minutes
 on an H100.
 """
 
@@ -172,6 +191,27 @@ I3D_FLAGS = ["--dataset", "HMDB51", "--split", "1", "--clip-length", "250",
              "--accumulate", "0", "--ds_factor", "16", "--batch-size", "1",
              "--input-size", str(SIZE)]
 I3D_T, I3D_CHECK_T, I3D_VIDEOS, I3D_TIMED = 250, 16, 4, 5
+# The I3D training recipe (examples/i3d/train.sh, its --pretrained_3d
+# aside), at full width: clip 64, batch 3, iter-size 32 at 224².  The
+# macro steps cycle through I3D_STAGED microbatches staged on the host; the
+# card-vs-CPU check runs 2 microbatches of 1 clip x I3D_CHECK_T frames at
+# I3D_CHECK_SIZE²; the cli.train_i3d loop runs 2 epochs x 2 macro steps.
+I3D_TRAIN_FLAGS = ["--dataset", "HMDB51", "--split", "1", "--network", "I3D",
+                   "--clip-length", "64", "--iter-size", "32",
+                   "--batch-size", "3", "--optimizer", "adam",
+                   "--modality", "flow+mp4", "--train-frame-interval", "1",
+                   "--val-frame-interval", "1", "--lr-base", "0.0004",
+                   "--lr-base2", "0.0004", "--lr-d", "0.002", "--detach",
+                   "1", "--lr-factor", "0.2", "--drop-out", "0.85",
+                   "--fine_tune", "0", "--arch-estimator", "DenseNetTiny",
+                   "--arch-d", "Discriminator", "--adv", "1",
+                   "--epoch-thre", "6", "--ds_factor", "16",
+                   "--mv-minmaxnorm", "1", "--accumulate", "0"]
+I3D_TRAIN_T, I3D_TRAIN_B, I3D_TRAIN_ITER, I3D_STAGED = 64, 3, 32, 4
+I3D_CHECK_SIZE = 64
+I3D_LOOP_ITER = 2
+I3D_LOOP_FLAGS = ["--iter-size", str(I3D_LOOP_ITER), "--epoch-thre", "1",
+                  "--end-epoch", "2", "--workers", "8"]
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) by the type
 # the I3D step computes in.
 PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -643,12 +683,14 @@ def _recipe_setup(torch, dev, gops, args):
     return pool, batch, val_batch
 
 
-def _card_vs_cpu(torch, dev, batch, build, run, what, shown):
+def _card_vs_cpu(torch, dev, batch, build, run, what, shown, desc=None):
     """`run(model, batch)` -> metrics for a `build()` model on the card and
-    on the CPU, over the first CHECK_VIDEOS videos of `batch`: in float32
-    (TF32 off) the metrics agree within TRAIN_LOSS_RTOL; in float64 those
-    and every parameter and BN statistic (see TRAIN_PARAM_RTOL)."""
+    on the CPU, over the first CHECK_VIDEOS rows of `batch` (`desc` says
+    what they are): in float32 (TF32 off) the metrics agree within
+    TRAIN_LOSS_RTOL; in float64 those and every parameter and BN statistic
+    (see TRAIN_PARAM_RTOL)."""
     n = CHECK_VIDEOS
+    desc = desc or f"{n} videos x {SEGMENTS} at {SIZE}"
     for dtype in (torch.float32, torch.float64):
         small = {k: v[:n].to(dtype) if v.is_floating_point() else v[:n]
                  for k, v in batch.items()}
@@ -668,20 +710,18 @@ def _card_vs_cpu(torch, dev, batch, build, run, what, shown):
                          gpu_model.state_dict(), f"{what}, card vs CPU")
             checked += (f"; parameters and BN statistics within rtol "
                         f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL}")
-        print(f"  {what}, {n} videos x {SEGMENTS} at {SIZE}, "
-              f"{str(dtype)[6:]}: " + ", ".join(
+        print(f"  {what}, {desc}, {str(dtype)[6:]}: " + ", ".join(
                   f"{k} card {float(got[k]):.7f} / CPU {float(want[k]):.7f}"
                   for k in shown)
               + f"; agree: {checked} (rtol {TRAIN_LOSS_RTOL}, TF32 off)")
 
 
-def _precision_times(torch, make_fns, trained, smi):
+def _precision_times(torch, make_fns, trained, smi, clips=BATCH * SEGMENTS):
     """Median ms (TRAIN_TIMED_STEPS, CUDA events) and peak memory of each
-    function of `make_fns(bf16)` at BATCH x SEGMENTS, in fp32 (TF32 off),
-    TF32 and bf16 autocast, beside the memory already allocated when it
-    starts (model, optimizer state, batches), and clips/s over one call of
-    each function named in `trained`."""
-    clips = BATCH * SEGMENTS
+    function of `make_fns(bf16)` on `clips` clips a call, in fp32 (TF32
+    off), TF32 and bf16 autocast, beside the memory already allocated when
+    it starts (model, optimizer state, batches), and clips/s over one call
+    of each function named in `trained`."""
     timing = {}
     print(f"  step times on {smi} (medians of {TRAIN_TIMED_STEPS}, CUDA "
           f"events, {clips} clips a step):")
@@ -1049,8 +1089,10 @@ def synthetic_clip_dataset(pool, num_videos, clip_length, device, cache):
     the card by `codec.accumulate.gop_mv_residual` and u8-encoded on the
     host once, as `GopCache` encodes them (min-max bound 20).  Video v has
     label v % NUM_CLASS and 21 GOPs; its GOP k is pool GOP (label + k) %
-    len(pool).  The flow channels are neutral (128), as without a flow
-    prefix."""
+    len(pool).  The flow channels are the u8 MV of the GOP's next position,
+    so that they vary: a training step's MSE target and the discriminator's
+    real frames are then not a constant 128, the flow of a clip without
+    flow files."""
     from dmcnet_tpu_torch.codec.accumulate import gop_mv_residual
     from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
     from dmcnet_tpu_torch.data.lists import VideoItem
@@ -1067,7 +1109,7 @@ def synthetic_clip_dataset(pool, num_videos, clip_length, device, cache):
                 cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
                             _encode_u8(res.cpu().numpy()))
             mv_u8, res_u8 = cache[k]
-            return np.concatenate([np.full((H, W, 2), 128, np.uint8),
+            return np.concatenate([mv_u8[(gop_pos + 1) % len(mv_u8)],
                                    mv_u8[gop_pos], res_u8[gop_pos]], axis=-1)
 
     items = [VideoItem(f"synthetic/{v}.avi", v % NUM_CLASS, 21 * T)
@@ -1375,6 +1417,198 @@ def i3d_phase(torch, bt, dev, gops, workdir):
             "launches": launches}
 
 
+def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
+    """11. I3D training at the width of examples/i3d/train.sh (its
+    --pretrained_3d file is not in the repository: the weights are seeded
+    He-normal), with its files in `workdir`: a D and a G macro step on the
+    card against the CPU, D- and G-phase microstep times in fp32, TF32 and
+    bf16, one 32-microbatch D and G macro step, the `cli.train_i3d` loop
+    through the stage-2 swap, its checkpoint scored by
+    `evaluate_video_i3d` on the card and the CPU.  Returns the numbers for
+    the summary line."""
+    import os
+
+    from dmcnet_tpu_torch.cli import evaluate_video_i3d as eval_cli
+    from dmcnet_tpu_torch.cli import train_i3d
+    from dmcnet_tpu_torch.data.video_iter import (
+        I3DBatchAssembler,
+        i3d_augment_batch,
+    )
+    from dmcnet_tpu_torch.train.engine_i3d import make_i3d_steps
+    from dmcnet_tpu_torch.train.optimizers import make_i3d_optimizers
+
+    phase("i3d_train")
+    t_phase = time.perf_counter()
+    args = train_i3d.autofill(train_i3d.build_parser().parse_args(
+        I3D_TRAIN_FLAGS + ["--model-dir", workdir, "--task-name", "i3d"]))
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = {}
+    # the recipe's stage-1 step (--epoch-thre 6): base layers frozen, the
+    # classifier at lr1 = 0 under --detach, full backward
+    lrs = (args.lr_base, 0.0, args.lr_d, train_i3d.WEIGHT_DECAY)
+
+    def build(size, dropout=True):
+        net = he_init(torch, train_i3d.build_model(args, NUM_CLASS,
+                                                   size)[0], 0)
+        if not dropout:
+            net.dropout.p = 0.0
+            _dropout_off(torch, net)
+        return net
+
+    def steps_of(model, bf16=False):
+        opts = make_i3d_optimizers(model, optim=args.optimizer, lr_mul=0.5,
+                                   has_gan=True, freeze_base=True)
+        return make_i3d_steps(model, opts, adv=args.adv, bf16=bf16)
+
+    def split(b):
+        return [{k: v[i] for k, v in b.items()}
+                for i in range(b["label"].shape[0])]
+
+    # (a) a D and a G macro step of 2 microbatches, card against CPU
+    t, size = I3D_CHECK_T, I3D_CHECK_SIZE
+    check_ds = synthetic_clip_dataset(pool, 2, t, dev, cache)
+    asm = I3DBatchAssembler(check_ds, input_size=size, is_train=True, seed=0)
+    micros = [i3d_augment_batch(asm.batch([i]), ds_factor=args.ds_factor,
+                                input_size=size, device="cpu")
+              for i in range(2)]
+    # stacked on a leading microbatch axis, which `split` undoes
+    micro = {k: torch.stack([m[k] for m in micros]) for k in micros[0]}
+
+    def d_then_g(model, b):
+        d_step, g_step = steps_of(model)
+        return {**{"D " + k: v for k, v in d_step(split(b), *lrs,
+                                                   True).items()},
+                **{"G " + k: v for k, v in g_step(split(b), *lrs,
+                                                   True).items()}}
+
+    _card_vs_cpu(torch, dev, micro, lambda: build(size, dropout=False),
+                 d_then_g, "D + G macro step, dropout off",
+                 ("D loss", "G loss"),
+                 desc=f"2 microbatches of 1 clip x {t} frames at {size}²")
+
+    # (b) microstep times at the recipe's width: one microbatch of
+    # I3D_TRAIN_B clips x I3D_TRAIN_T frames, resident on the card
+    train_ds = synthetic_clip_dataset(pool, I3D_STAGED * I3D_TRAIN_B,
+                                      I3D_TRAIN_T, dev, cache)
+    asm = I3DBatchAssembler(train_ds, input_size=SIZE, is_train=True, seed=0)
+    t0 = time.perf_counter()
+    staged = [asm.batch(range(i * I3D_TRAIN_B, (i + 1) * I3D_TRAIN_B))
+              for i in range(I3D_STAGED)]
+    stage_s = time.perf_counter() - t0
+    n_clips = I3D_STAGED * I3D_TRAIN_B
+    print(f"  host assembly of {n_clips} clips of {I3D_TRAIN_T} frames "
+          f"({I3D_STAGED} microbatches of {I3D_TRAIN_B}, one thread): "
+          f"{stage_s:.3f} s = {stage_s / n_clips:.3f} s a clip (host clock)")
+    aug = dict(ds_factor=args.ds_factor, input_size=SIZE, device=dev)
+    resident = i3d_augment_batch(staged[0], **aug)
+    model = build(SIZE).to(dev)
+
+    def timed(bf16):
+        d_step, g_step = steps_of(model, bf16=bf16)
+        return {"d_microstep": lambda: d_step([resident], *lrs, True),
+                "g_microstep": lambda: g_step([resident], *lrs, True)}
+
+    timing = _precision_times(torch, timed, ("d_microstep", "g_microstep"),
+                              smi, clips=I3D_TRAIN_B)
+
+    # (c) one whole macro step of each kind: I3D_TRAIN_ITER microbatches
+    # cut from the staged clips in turn, each to the card and augmented
+    # there, as the command feeds them
+    d_step, g_step = steps_of(model)
+    macro = {}
+    for name, fn in (("d", d_step), ("g", g_step)):
+        feed = (i3d_augment_batch(staged[i % I3D_STAGED], **aug)
+                for i in range(I3D_TRAIN_ITER))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        m = fn(feed, *lrs, True)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        check(np.isfinite(loss), f"{name} macro step loss {loss}")
+        clips = I3D_TRAIN_ITER * I3D_TRAIN_B
+        macro[name] = {"ms": step_s * 1e3, "clips_per_s": clips / step_s,
+                       "peak_bytes": torch.cuda.max_memory_allocated(),
+                       "resident_bytes": resident_bytes, "loss": loss}
+        print(f"  {name.upper()} macro step ({I3D_TRAIN_ITER} microbatches x "
+              f"{I3D_TRAIN_B} clips x {I3D_TRAIN_T} frames at {SIZE}², fp32, "
+              f"each microbatch from the host): {step_s * 1e3:.1f} ms = "
+              f"{clips / step_s:.2f} clips/s (host clock); peak memory "
+              f"{macro[name]['peak_bytes'] / 2**30:.3f} GiB "
+              f"({resident_bytes / 2**30:.3f} resident before it); loss "
+              f"{loss:.5f}")
+    del model, d_step, g_step, resident, staged
+
+    # (d) the cli.train_i3d loop: 2 epochs x 2 macro steps (D, G) at
+    # --iter-size 2, the stage-2 swap at --epoch-thre 1
+    loop_args = train_i3d.autofill(train_i3d.build_parser().parse_args(
+        I3D_TRAIN_FLAGS + I3D_LOOP_FLAGS + ["--model-dir", workdir,
+                                            "--task-name", "loop"]))
+    loop_args.score_dir = os.path.join(workdir, "score")
+    loop_train = synthetic_clip_dataset(
+        pool, 2 * I3D_TRAIN_B * I3D_LOOP_ITER, I3D_TRAIN_T, dev, cache)
+    loop_val = synthetic_clip_dataset(pool, I3D_TRAIN_B, I3D_TRAIN_T, dev,
+                                      cache)
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+    t0 = time.perf_counter()
+    result = train_i3d.train(loop_args, loop_train, loop_val, device=dev,
+                             input_size=SIZE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    check(len(result.epochs) == 2, "the loop did not run 2 epochs")
+    check(result.optimizers["gf"].param_groups[0]["eps"] == 1e-3,
+          "the loop did not swap to the stage-2 optimizers")
+    for e in result.epochs:
+        print(f"  loop epoch {e['epoch']}: data time {e['data_time']:.4f} s, "
+              f"batch time {e['batch_time']:.4f} s (averages over a D and a "
+              "G macro step, host clock)")
+    print(f"  loop: 2 epochs with evaluation and the stage-2 swap in "
+          f"{loop_s:.2f} s; launches in the loop {launches} (no TPU kernel "
+          "lies on it: the clips accumulate on the host)")
+    check(launches == {"backtrace_warp_batch": 0, "backtrace_gop_cells": 0},
+          f"the I3D training loop launched {launches}")
+
+    # (e) its checkpoint through evaluate_video_i3d --load-weights, on the
+    # card and on the CPU
+    ckpt = result.checkpoint
+    check(ckpt is not None and os.path.exists(ckpt), "no checkpoint written")
+    eval_args = eval_cli.build_parser().parse_args(I3D_FLAGS + [
+        "--clip-length", str(I3D_CHECK_T), "--load-weights", ckpt,
+        "--data-root", workdir, "--video-prefix", workdir])
+    scored = []
+    for device in (dev, "cpu"):
+        t0 = time.perf_counter()
+        scores, _, top1 = eval_cli.evaluate(
+            eval_args, synthetic_clip_dataset(pool, 2, I3D_CHECK_T, dev,
+                                              cache), device=device)
+        scored.append((scores, top1, time.perf_counter() - t0))
+    (s_card, top1_card, t_card), (s_cpu, top1_cpu, t_cpu) = scored
+    check(s_card.shape == (2, NUM_CLASS) and np.isfinite(s_card).all(),
+          "evaluate scores")
+    check(np.allclose(s_card, s_cpu, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          "the trained checkpoint's scores: card != CPU")
+    print(f"  {os.path.basename(ckpt)} through evaluate_video_i3d "
+          f"--load-weights (every key filled): 2 videos x {I3D_CHECK_T} "
+          f"frames, scores max |card - CPU| "
+          f"{float(np.abs(s_card - s_cpu).max()):.3g} (rtol = atol = "
+          f"{LOGIT_RTOL}), top-1 {top1_card:.1f}% / {top1_cpu:.1f}%; "
+          f"{t_card:.2f} s card, {t_cpu:.2f} s CPU")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  i3d_train phase {phase_s:.1f} s")
+    return {"timing": timing, "macro": macro, "stage_assemble_s": stage_s,
+            "epochs": [{k: e[k] for k in ("epoch", "data_time",
+                                          "batch_time")}
+                       for e in result.epochs], "loop_s": loop_s,
+            "launches": launches, "eval_card_s": t_card,
+            "eval_cpu_s": t_cpu, "phase_s": phase_s}
+
+
 def main():
     import torch
 
@@ -1622,8 +1856,9 @@ def main():
     train = in_workdir(train_phase, torch, bt, dev, gops, smi)
     gan = in_workdir(gan_phase, torch, bt, dev, gops, smi)
     i3d = in_workdir(i3d_phase, torch, bt, dev, gops)
+    i3d_train = in_workdir(i3d_train_phase, torch, bt, dev, gops, smi)
 
-    # 11. videos --------------------------------------------------------------
+    # 12. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -1699,7 +1934,7 @@ def main():
                       "launch_floor_ms": b2["floor_ms"],
                       "codec_ms": codec_times,
                       "data_ms": data["times"], "train": train,
-                      "gan": gan, "i3d": i3d,
+                      "gan": gan, "i3d": i3d, "i3d_train": i3d_train,
                       "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,19 +13,24 @@ package's module names so every counterpart can be found:
                   versions, and `gop_mv_residual_cuda`
   data/           lists, TSN and I3D clip sampling, the CoViAR dataset and
                   its batches, the I3D clip dataset and its batches, crops
-                  and normalization on a device, the batch loader
+                  and normalization on a device, the batch loader, an
+                  image-list dataset
   models/         estimators (ContextNetwork(-Att), DenseNet family, Tiny
                   early fusion), ResNet-18/34, DMCNet (with or without a
                   discriminator), PlainTSN, the GAN discriminators, I3D,
-                  weight bridge
-  train/          Adam parameter groups, train/eval steps with the freeze
-                  phase, the GAN's alternating D and G steps, the I3D eval
-                  step, meters, checkpoints
+                  weight bridge, initialisers and 2D -> 3D inflation, the
+                  Kinetics TF importer
+  train/          Adam and SGD parameter groups, train/eval steps with the
+                  freeze phase, the GAN's alternating D and G steps, the
+                  I3D D and G macro steps (iter-size accumulation, the
+                  `.grad` carry) and eval step, the I3D LR driver and
+                  callbacks, meters and metric lists, checkpoints
   utils/          JSON-lines metrics log
   serving         DMCPredictor: compressed video in, action scores out
   cli/            serve (batch / stdin scoring), train, train_gan, test
                   (with the GAN's adversarial accuracy), combine,
-                  evaluate_video_i3d
+                  evaluate_video_i3d, train_i3d (train_hmdb51,
+                  train_ucf101)
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 CUDA and without an explicit device they raise.

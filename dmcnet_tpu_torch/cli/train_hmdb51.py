@@ -1,0 +1,16 @@
+"""HMDB-51 I3D training command (the port's counterpart of
+`dmcnet_tpu/cli/train_hmdb51.py`, reference code/dmcnet_I3D/train_hmdb51.py):
+`cli.train_i3d` with `--dataset` defaulting to HMDB51."""
+
+import sys
+
+from dmcnet_tpu_torch.cli.train_i3d import main as _i3d_main
+
+
+def main(argv=None, **kwargs):
+    kwargs.setdefault("dataset_default", "HMDB51")
+    return _i3d_main(argv, **kwargs)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

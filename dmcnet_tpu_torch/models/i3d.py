@@ -7,8 +7,9 @@ reference's NCTHW layout (B, C, T, H, W):
   * max pools with TF-SAME padding (`layers.max_pool3d_same`);
   * stem 7x7x7/s2 -> pools -> mixed_3b..5c -> AvgPool3d((2,7,7), s1) ->
     conv3d_0c_1x1 (1024 -> 400, bias, no BN) -> mean over time ->
-    Linear(400, C) (i3d.py:502-560); the reference's dropout before the
-    classifier is a no-op in eval and comes with the I3D training slice;
+    Dropout(dropout_prob) -> Linear(400, C) (i3d.py:502-560); the dropout
+    is element-wise on (B, 400), kept values scaled by 1 / (1 - p), and the
+    identity in eval;
   * the per-frame DMC generator on (B*T, 5, H, W), which in NCTHW needs a
     permute each way (i3d.py:568-571);
   * `node` multiplexing: 'logit' | 'flow+logit' | 'gen_flow' | 'D'
@@ -119,7 +120,7 @@ class I3D(nn.Module):
     `input_size`)."""
 
     def __init__(self, num_classes, modality="rgb", arch_estimator=None,
-                 arch_d=None, input_size=224):
+                 arch_d=None, input_size=224, dropout_prob=0.0):
         super().__init__()
         self.modality = modality
         if arch_estimator:
@@ -140,6 +141,7 @@ class I3D(nn.Module):
             c = mixed_width(plan)
         self.conv3d_0c_1x1 = Unit3D(c, 400, activation=None, use_bias=True,
                                     use_bn=False)
+        self.dropout = nn.Dropout(dropout_prob)
         self.classifier = nn.Linear(400, num_classes)
 
     @property
@@ -168,7 +170,7 @@ class I3D(nn.Module):
         x = self.conv3d_0c_1x1(x)
         # squeeze space, mean over time (Unit3Dpy, i3d.py:398-402)
         x = x.squeeze(4).squeeze(3).mean(2)
-        return self.classifier(x)
+        return self.classifier(self.dropout(x))
 
     def forward(self, inp, node="logit", detach=False):
         if node == "D":
@@ -184,12 +186,12 @@ class I3D(nn.Module):
 
 
 def get_symbol(name, modality="rgb", num_classes=51, arch_estimator=None,
-               arch_d=None, input_size=224):
+               arch_d=None, input_size=224, dropout_prob=0.0):
     """Factory and input config (reference network/symbol_builder.py:12-25,
     network/config.py:10-27: I3D mean = std = 0.5)."""
     if name.upper() != "I3D":
         raise ValueError(f"unknown network {name!r}")
     net = I3D(num_classes=num_classes, modality=modality,
               arch_estimator=arch_estimator, arch_d=arch_d,
-              input_size=input_size)
+              input_size=input_size, dropout_prob=dropout_prob)
     return net, {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5]}

@@ -14,7 +14,9 @@ Dense over the NHWC-flattened map in flax, reordered to torch's NCHW
 flattening.
 
 `load_reference_i3d` partially loads a reference I3D `.pth` into an `I3D`,
-the counterpart of `dmcnet_tpu/models/import_torch_i3d.py:135-150`.
+the counterpart of `dmcnet_tpu/models/import_torch_i3d.py:135-150`, and
+`load_reference_i3d_2d` a 2D one through temporal inflation (`--pretrained_2d`,
+`load_i3d_pth_2d`, :153-177).
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import re
 
 import numpy as np
 import torch
+
+from dmcnet_tpu_torch.models.initializer import inflate_state_2d_to_3d
 
 
 def _t(a):
@@ -204,6 +208,47 @@ _I3D_TOPS = re.compile(r"(conv3d_\w+|mixed_\w+|classifier|gen_flow_model|"
                        r"discriminator)\.")
 
 
+_STEM = "conv3d_1a_7x7.conv3d.weight"
+_RUNNING = ("running_mean", "running_var")
+
+
+def _reference_state(path_or_state_dict):
+    """A reference checkpoint (a path or a loaded object) -> its state dict,
+    `module.` prefixes and BN batch counters dropped."""
+    obj = path_or_state_dict
+    if not isinstance(obj, dict):
+        obj = torch.load(obj, map_location="cpu", weights_only=True)
+    return {k: v for k, v in state_dict_from_checkpoint(obj).items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def _adapt_stem(sd, modality):
+    """A stem of another input-channel count (3-channel RGB on a 2-channel
+    flow model), 2D or 3D, channel-meaned and broadcast (reference
+    train/model.py:55-58)."""
+    in_ch = 2 if modality in ("flow", "mv", "flow+mp4") else 3
+    w = sd.get(_STEM)
+    if w is not None and w.ndim in (4, 5) and w.shape[1] != in_ch:
+        shape = (-1, in_ch) + (-1,) * (w.ndim - 2)
+        sd = dict(sd)
+        sd[_STEM] = w.float().mean(dim=1, keepdim=True).expand(shape) \
+            .contiguous()
+    return sd
+
+
+def load_matching(model, tensors):
+    """Load the tensors of `tensors` whose key `model` has at the same
+    shape, non-strictly.  Returns (loaded keys, unfilled): `unfilled` lists,
+    sorted, the model's keys (BN batch counters aside) left at their
+    initialisation."""
+    own = model.state_dict()
+    keep = {k: v for k, v in tensors.items()
+            if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    model.load_state_dict(keep, strict=False)
+    return set(keep), sorted(k for k in own if k not in keep
+                             and not k.endswith("num_batches_tracked"))
+
+
 def load_reference_i3d(path_or_state_dict, model, modality):
     """Partial load of a reference I3D checkpoint (a path to a torch file,
     or a state dict) into `model`, as `load_i3d_pth` does (reference
@@ -216,24 +261,34 @@ def load_reference_i3d(path_or_state_dict, model, modality):
     holds at another shape.  `unfilled` lists, sorted, the model's keys
     (BN batch counters aside) that the checkpoint did not fill, so that
     they keep their initialisation."""
-    obj = path_or_state_dict
-    if not isinstance(obj, dict):
-        obj = torch.load(obj, map_location="cpu", weights_only=True)
-    sd = {k: v for k, v in state_dict_from_checkpoint(obj).items()
-          if not k.endswith("num_batches_tracked")}
-    in_ch = 2 if modality in ("flow", "mv", "flow+mp4") else 3
-    stem = "conv3d_1a_7x7.conv3d.weight"
-    if stem in sd and sd[stem].ndim == 5 and sd[stem].shape[1] != in_ch:
-        w = sd[stem].float().mean(dim=1, keepdim=True)
-        sd[stem] = w.expand(-1, in_ch, -1, -1, -1).contiguous()
-    own = model.state_dict()
+    sd = _adapt_stem(_reference_state(path_or_state_dict), modality)
     known = {k for k in sd if _I3D_TOPS.match(k)}
-    keep = {k: v for k, v in sd.items()
-            if k in own and tuple(own[k].shape) == tuple(v.shape)}
-    model.load_state_dict(keep, strict=False)
-    imported = sum(1 for k in known if not k.endswith(("running_mean",
-                                                        "running_var")))
-    unfilled = sorted(k for k in own if k not in keep
-                      and not k.endswith("num_batches_tracked"))
+    loaded, unfilled = load_matching(model, sd)
+    imported = sum(1 for k in known if not k.endswith(_RUNNING))
     return (f"imported={imported} skipped={len(sd) - len(known)} "
-            f"shape-missed={len(known - set(keep))}"), unfilled
+            f"shape-missed={len(known - loaded)}"), unfilled
+
+
+def load_reference_i3d_2d(path_or_state_dict, model, modality,
+                          mode="inflation", seed=None):
+    """Partial load of a 2D reference checkpoint (the I3D module names with
+    4D kernels) into `model` through temporal inflation, as
+    `load_i3d_pth_2d` does (reference network/initializer.py:62-143): the
+    stem channel-adapted, each 4D kernel inflated to its 3D target
+    (`models.initializer.inflate_state_2d_to_3d`, `mode` "inflation" or
+    "random" with numpy seed `seed`), other parameters of the model's shape
+    copied and of another shape left out, BN statistics of the model's
+    shape loaded.  Returns (report, unfilled) as `load_reference_i3d`; the
+    report is "2d-inflated=N skipped=N shape-missed=N": parameters
+    inflated or copied, keys of no reference module, inflated kernels and
+    BN statistics the model lacks or holds at another shape."""
+    sd = _adapt_stem(_reference_state(path_or_state_dict), modality)
+    known = [k for k in sd if _I3D_TOPS.match(k)]
+    inflated = inflate_state_2d_to_3d(
+        {k: sd[k] for k in known if not k.endswith(_RUNNING)},
+        model.state_dict(), mode, seed)
+    candidates = dict(inflated)
+    candidates.update((k, sd[k]) for k in known if k.endswith(_RUNNING))
+    loaded, unfilled = load_matching(model, candidates)
+    return (f"2d-inflated={len(inflated)} skipped={len(sd) - len(known)} "
+            f"shape-missed={len(candidates) - len(loaded)}"), unfilled

@@ -1,3 +1,4 @@
 """Training in the port: optimizers, the dmcnet train/eval steps, the GAN's
-D and G steps, the I3D eval step, metrics and checkpoints (counterpart of
-`dmcnet_tpu/train`; the I3D train steps are not ported yet)."""
+D and G steps, the I3D train steps with iter-size accumulation and the I3D
+eval step, the I3D LR schedulers and callbacks, metrics and checkpoints
+(counterpart of `dmcnet_tpu/train`)."""

@@ -15,6 +15,19 @@ exact.  Every tensor is stored on the CPU.  Files are named
 `<prefix>_<representation>_checkpoint.pth.tar`, the best copied to
 `..._model_best.pth.tar`.  Reading the JAX package's msgpack and orbax
 checkpoints is not ported yet.
+
+The I3D trainer's checkpoints (`save_i3d_checkpoint`) are named
+`{model_prefix}_ep-{epoch:04d}.pth` (the JAX package's
+`cli/train_i3d.py:435-446`) and hold
+
+    {epoch, top1, stage2, state_dict, optimizer_cls, optimizer_gf
+     [, optimizer_d], grad}
+
+`grad` holds the carried gradients (the torch `.grad` of every parameter
+that has one), which the JAX package's state keeps as `grad_acc`; `stage2`
+says which optimizers `optimizer_cls` and `optimizer_gf` are.
+`evaluate_video_i3d --load-weights` reads such a file through its
+`state_dict`.
 """
 
 from __future__ import annotations
@@ -100,3 +113,42 @@ def load_reference_weights(model, path):
     missing = sorted(set(own) - set(sd))
     model.load_state_dict(keep, strict=False)
     return skipped, missing
+
+
+def i3d_checkpoint_name(model_prefix, epoch):
+    return f"{model_prefix}_ep-{epoch:04d}.pth"
+
+
+_I3D_OPTIMIZERS = tuple(zip(("cls", "gf", "d"), _OPTIMIZER_KEYS))
+
+
+def save_i3d_checkpoint(model, optimizers, meta, filename):
+    """`save_checkpoint` of {**meta, state_dict, optimizer_* of each of
+    `optimizers` ({"cls", "gf"[, "d"]}), grad}.  `meta` holds epoch, top1
+    and stage2."""
+    grad = {k: _cpu(p.grad) for k, p in model.named_parameters()
+            if p.grad is not None}
+    return save_checkpoint(model, dict(meta, grad=grad), filename,
+                           [optimizers[k] for k, _ in _I3D_OPTIMIZERS
+                            if k in optimizers])
+
+
+def load_i3d_checkpoint(filename, model, optimizers, stage2):
+    """Restore a checkpoint of `save_i3d_checkpoint` into `model` (strict),
+    its carried gradients and `optimizers` ({"cls", "gf"[, "d"]}, built for
+    `stage2`); returns its meta {epoch, top1, stage2}.
+
+    A stage-1 file read into stage-2 optimizers is the stage-2 swap itself
+    (the file of the epoch at `--epoch-thre`): "cls" and "gf" stay fresh
+    and only "d" is restored, as an uninterrupted run swaps them."""
+    payload = torch.load(filename, map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["state_dict"])
+    device = next(model.parameters()).device
+    for k, p in model.named_parameters():
+        g = payload["grad"].get(k)
+        p.grad = None if g is None else g.to(device, p.dtype)
+    swap = stage2 and not payload["stage2"]
+    for key, name in _I3D_OPTIMIZERS:
+        if key in optimizers and not (swap and key != "d"):
+            optimizers[key].load_state_dict(payload[name])
+    return {k: payload.get(k) for k in ("epoch", "top1", "stage2")}

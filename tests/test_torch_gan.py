@@ -91,7 +91,7 @@ def jax_dropout_off():
 
     def no_dropout(*args, **kw):
         kw["rate"] = 0.0
-        return real(*args, **kw)
+        return real(*args[1:], **kw)  # a positional rate replaced too
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(fnn, "Dropout", no_dropout)

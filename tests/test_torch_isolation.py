@@ -38,7 +38,15 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.train.engine_i3d",
             "dmcnet_tpu_torch.cli.evaluate_video_i3d",
             "dmcnet_tpu_torch.train.engine_gan",
-            "dmcnet_tpu_torch.cli.train_gan"}
+            "dmcnet_tpu_torch.cli.train_gan",
+            "dmcnet_tpu_torch.train.lr_scheduler",
+            "dmcnet_tpu_torch.train.callback",
+            "dmcnet_tpu_torch.models.initializer",
+            "dmcnet_tpu_torch.models.import_tf_i3d",
+            "dmcnet_tpu_torch.data.image_iterator",
+            "dmcnet_tpu_torch.cli.train_i3d",
+            "dmcnet_tpu_torch.cli.train_hmdb51",
+            "dmcnet_tpu_torch.cli.train_ucf101"}
 
 
 def test_port_imports_no_jax():
