@@ -108,14 +108,29 @@ Phases:
                  launches of B1 and B2 counted around it (0: the clips
                  accumulate on the host); its checkpoint scored by
                  evaluate_video_i3d --load-weights on the card and the CPU
- 12. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+ 12. dist        the parallel layer and the directory checkpoints at the
+                 train phase's width, on a world-size-1 process group
+                 (cpu:gloo,cuda:nccl): the plain, data-parallel (global BN
+                 swapped in, gradients averaged) and FSDP2 train steps on
+                 the same seeded weights and batch, and a GAN D and G step
+                 plain and data-parallel, agree (f32 losses, f64
+                 parameters); their ms (CUDA events, median of 5, fp32)
+                 and peak memory; the cli.train loop (2 epochs x 2
+                 batches) with --ckpt-backend orbax-async against orbax:
+                 the time each save blocks the loop and a step directory's
+                 bytes; a torn step (meta.pkl, no commit) planted and
+                 skipped by --auto-resume; the directory scored by
+                 cli.test --weights and served by
+                 DMCPredictor.from_checkpoint, card against CPU; B1 and B2
+                 counted around the phase (0)
+ 13. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
 Any failure raises and exits non-zero.  The last lines are a `kernels` JSON
 object, a summary JSON object, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.  Needs no network; takes about 4 minutes
-on an H100.
+`{"ok": true, "device": {...}}`.  Needs no network; takes about 4-5
+minutes on an H100.
 """
 
 from __future__ import annotations
@@ -184,6 +199,9 @@ GAN_RECIPE = GAN_MODEL + ["--num_segments", str(SEGMENTS), "--lr", "0.001",
                           "--lr-adv-g", "1", "--lr-adv-d", "1",
                           "--lr_d_mult", "0.01"]
 GAN_TEST_VIDEOS = 4
+# The test command's model flags for the dist phase's dmcnet checkpoint.
+DIST_TEST_MODEL = [f for f in GAN_MODEL if f not in ("--arch_d",
+                                                     "Discriminator")]
 # The I3D evaluation recipe (examples/i3d/eval.sh), at full width.
 I3D_FLAGS = ["--dataset", "HMDB51", "--split", "1", "--clip-length", "250",
              "--frame-interval", "1", "--modality", "flow+mp4",
@@ -1082,6 +1100,298 @@ def gan_phase(torch, bt, dev, gops, smi, workdir):
         "test_cpu_s": t_cpu, "launches": launches, "phase_s": phase_s}
 
 
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _dir_bytes(path):
+    import os
+
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def dist_phase(torch, bt, dev, gops, smi, workdir):
+    """12. The parallel layer and the directory checkpoints at the HMDB-51
+    recipe's width, on a world-size-1 process group (cpu:gloo,cuda:nccl):
+    the plain, data-parallel (global BN, averaged gradients) and FSDP2
+    train steps, and a GAN D and G step plain and data-parallel, agree
+    (f32 losses, f64 parameters, the train phase's tolerances); their step
+    times and peak memory; the cli.train loop with --ckpt-backend
+    orbax-async against orbax (the time each save blocks the loop, a step
+    directory's bytes); a torn step planted and skipped by --auto-resume;
+    the directory scored by cli.test --weights and served by
+    DMCPredictor.from_checkpoint on the card against the CPU.  B1 and B2
+    are counted around the phase: none lies on it (the datasets' GOPs are
+    accumulated before the counts are set to 0)."""
+    import contextlib
+    import io
+    import os
+    import pickle
+
+    import torch.distributed as dist
+
+    from dmcnet_tpu_torch.cli import test as test_cli
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+    from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
+    from dmcnet_tpu_torch.models.tsn import segment_consensus
+    from dmcnet_tpu_torch.ops.backtrace import gop_mv_residual_cuda
+    from dmcnet_tpu_torch.parallel import fsdp, mesh, multihost
+    from dmcnet_tpu_torch.serving import DMCPredictor
+    from dmcnet_tpu_torch.train import checkpoints as tckpt
+    from dmcnet_tpu_torch.train import engine
+    from dmcnet_tpu_torch.train import optimizers as topt
+    from dmcnet_tpu_torch.train.engine_gan import make_gan_train_steps
+
+    phase("dist")
+    t_phase = time.perf_counter()
+    args = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS + [
+        "--model-prefix", os.path.join(workdir, "dist")])
+    gan_args = build_parser(gan=True).parse_args(GAN_RECIPE + LOOP_FLAGS)
+    pool, batch, val_batch = _recipe_setup(torch, dev, gops, args)
+    cache = {}
+    for k, gop in enumerate(pool):  # accumulated before the counts start
+        mv, res = gop_mv_residual_cuda(*gop, device=dev)
+        cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
+                    _encode_u8(res.cpu().numpy()))
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        print(f"  process group: {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}")
+
+        def build(kind, gan=False):
+            """A seeded model of `kind` (plain, dp, fsdp) on the card and
+            its optimizers; call `.to(dtype)` through `dtype`."""
+            def make(dtype=torch.float32):
+                a = gan_args if gan else args
+                model = train_cli.build_model(a, NUM_CLASS, SIZE)
+                if gan:
+                    _dropout_off(torch, model)
+                model = model.to(dev, dtype)
+                if kind != "plain":
+                    mesh.use_global_batchnorm(model)
+                if kind == "fsdp":
+                    fsdp.shard_model(model)
+                opts = topt.make_optimizers(
+                    model, a.lr_cls_mult, a.lr_mse_mult,
+                    a.lr_d_mult if gan else None)
+                topt.adjust_learning_rate(opts, a.lr, a.weight_decay)
+                if kind == "fsdp":
+                    fsdp.loop_optimizers(opts)
+                if kind != "plain":
+                    mesh.sync_gradients(opts)
+                return model, opts
+            return make
+
+        kw = dict(num_segments=SEGMENTS, lr_cls_w=args.lr_cls,
+                  lr_mse_w=args.lr_mse, loss_mse=args.loss_mse)
+
+        def train_step(model, opts):
+            return engine.make_train_step(model, *opts, **kw)
+
+        def gan_steps(model, opts):
+            return make_gan_train_steps(
+                model, *opts, num_segments=SEGMENTS, lr_cls_w=gan_args.lr_cls,
+                lr_adv_g=gan_args.lr_adv_g, lr_adv_d=gan_args.lr_adv_d,
+                lr_mse_w=gan_args.lr_mse, loss_mse=gan_args.loss_mse)
+
+        # (a) plain, data-parallel and FSDP2 steps on the same seeded
+        # weights and batch; a GAN D and G step plain and data-parallel
+        n = CHECK_VIDEOS
+        cases = (("dmcnet", ("plain", "dp", "fsdp"), False),
+                 ("gan", ("plain", "dp"), True))
+        for name, kinds, gan in cases:
+            for dtype in (torch.float32, torch.float64):
+                small = {k: v[:n].to(dtype) if v.is_floating_point() else
+                         v[:n] for k, v in batch.items()}
+                got = {}
+                for kind in kinds:
+                    model, opts = build(kind, gan)(dtype)
+                    if gan:
+                        d, g = gan_steps(model, opts)
+                        m = {**{"D " + k: v for k, v in d(small).items()},
+                             **{"G " + k: v for k, v in g(small).items()}}
+                    else:
+                        m = train_step(model, opts)(small, True)
+                    got[kind] = ({k: float(v) for k, v in m.items()},
+                                 fsdp.gather_state(model))
+                want, want_sd = got["plain"]
+                for kind in kinds[1:]:
+                    m, sd = got[kind]
+                    for k, w in want.items():
+                        check(abs(m[k] - w) <= TRAIN_LOSS_RTOL * abs(w),
+                              f"{name} {kind} {k} ({dtype}): {m[k]} != "
+                              f"plain {w}")
+                    if dtype == torch.float64:
+                        _state_close(torch, want_sd, sd,
+                                     f"{name} {kind} vs plain")
+                loss = "D loss" if gan else "loss"
+                print(f"  {name}, {n} videos x {SEGMENTS} at {SIZE}, "
+                      f"{str(dtype)[6:]}: " + ", ".join(
+                          f"{kind} {loss} {got[kind][0][loss]:.7f}"
+                          for kind in kinds)
+                      + "; agree: every metric (rtol "
+                      f"{TRAIN_LOSS_RTOL})" + (
+                          f", parameters and BN statistics (rtol "
+                          f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})"
+                          if dtype == torch.float64 else ""))
+
+        # (b) step times and peak memory at the recipe's batch, fp32
+        def timed(kind, gan):
+            model, opts = build(kind, gan)()
+            if gan:
+                d, g = gan_steps(model, opts)
+                fn = lambda: (d(batch), g(batch))  # noqa: E731
+            else:
+                step = train_step(model, opts)
+                fn = lambda: step(batch, True)  # noqa: E731
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = median_ms(fn, TRAIN_TIMED_STEPS, torch)
+            return {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()}
+
+        # each model freed before the next is built: the peaks are its own
+        timing = {f"{name}_{kind}": timed(kind, gan)
+                  for name, kinds, gan in cases for kind in kinds}
+        print(f"  step times on {smi} (medians of {TRAIN_TIMED_STEPS}, CUDA "
+              f"events, fp32, TF32 off, {BATCH} x {SEGMENTS} clips; GAN: a "
+              "D + G pair): " + ", ".join(
+                  f"{k} {v['ms']:.3f} ms / {v['peak_bytes'] / 2**30:.3f} "
+                  "GiB peak" for k, v in timing.items()))
+
+        # (c) the cli.train loop with each directory backend
+        train_ds = synthetic_dataset(pool, 2 * BATCH, True, dev, cache,
+                                     flow_from_mv=True)
+        val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
+                                   flow_from_mv=True)
+        train_cli.SAVE_FREQ = 1
+        loops = {}
+        for backend in ("orbax", "orbax-async"):
+            a = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS + [
+                "--ckpt-backend", backend, "--model-prefix",
+                os.path.join(workdir, backend)])
+            t0 = time.perf_counter()
+            result = train_cli.train(a, train_ds, val_ds, device=dev,
+                                     input_size=SIZE)
+            torch.cuda.synchronize()
+            directory = result.checkpoint
+            check(tckpt._committed_steps(directory) == [1, 2],
+                  f"{backend}: committed steps "
+                  f"{tckpt._committed_steps(directory)}")
+            loops[backend] = {
+                "loop_s": time.perf_counter() - t0,
+                "save_block_s": result.saves,
+                "step_bytes": _dir_bytes(os.path.join(directory, "2")),
+                "dir": directory, "model": result.model}
+            print(f"  cli.train --ckpt-backend {backend} (2 epochs x 2 "
+                  f"batches): loop {loops[backend]['loop_s']:.2f} s; the "
+                  "loop blocked, per save, on the checkpoint / the best "
+                  "copy for " + ", ".join(
+                      f"epoch {t['epoch']} {t['checkpoint_s'] * 1e3:.1f} / "
+                      + ("-" if t["best_s"] is None else
+                         f"{t['best_s'] * 1e3:.1f}") + " ms"
+                      + (" (best)" if t["is_best"] else "")
+                      for t in result.saves)
+                  + f" (host clock); a step directory holds "
+                  f"{loops[backend]['step_bytes'] / 2**20:.2f} MiB")
+
+        # (d) a torn step, skipped by --auto-resume
+        directory = loops["orbax-async"]["dir"]
+        os.makedirs(os.path.join(directory, "3", "state"))
+        with open(os.path.join(directory, "3", "meta.pkl"), "wb") as f:
+            pickle.dump({"epoch": 3}, f)
+        a = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS + [
+            "--ckpt-backend", "orbax-async", "--epochs", "3",
+            "--auto-resume", "1", "--model-prefix",
+            os.path.join(workdir, "orbax-async")])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            result = train_cli.train(a, train_ds, val_ds, device=dev,
+                                     input_size=SIZE)
+        check(f"--auto-resume: found {directory}" in out.getvalue()
+              and "(epoch 2)" in out.getvalue(),
+              "--auto-resume did not resume from the committed step 2")
+        check([e["epoch"] for e in result.epochs] == [2],
+              f"resumed epochs {[e['epoch'] for e in result.epochs]}")
+        check(tckpt._committed_steps(directory) == [2, 3],
+              f"after the resume: {tckpt._committed_steps(directory)}")
+        print("  torn step 3 (meta.pkl, no commit) planted: --auto-resume "
+              "resumed from step 2, trained epoch 2 and committed step 3 "
+              "in its place")
+
+        # (e) the directory scored and served, card against CPU
+        test_list = os.path.join(workdir, "test_list.txt")
+        with open(test_list, "w") as f:
+            f.writelines(f"synthetic/{v}.avi 0 {v % NUM_CLASS}\n"
+                         for v in range(GAN_TEST_VIDEOS))
+        real_dataset = test_cli.CoviarDataset
+        test_cli.CoviarDataset = lambda **kw: synthetic_dataset(
+            pool, GAN_TEST_VIDEOS, False, dev, cache, flow_from_mv=True,
+            num_segments=kw["num_segments"])
+        scored = []
+        try:
+            for device in (str(dev), "cpu"):
+                scores = os.path.join(workdir, f"dist_scores_{len(scored)}")
+                with contextlib.redirect_stdout(io.StringIO()):
+                    test_cli.main(DIST_TEST_MODEL + [
+                        "--test-list", test_list, "--weights", directory,
+                        "--test_segments", "3", "--test-crops", "10",
+                        "--input_size", str(SIZE), "--save-scores", scores,
+                        "--device", device])
+                with np.load(scores + ".npz", allow_pickle=True) as data:
+                    scored.append(np.stack([x[0] for x in data["scores"]]))
+        finally:
+            test_cli.CoviarDataset = real_dataset
+        check(scored[0].shape == (GAN_TEST_VIDEOS, 1, NUM_CLASS)
+              and np.isfinite(scored[0]).all(), "cli.test scores")
+        check(np.allclose(scored[0], scored[1], rtol=LOGIT_RTOL,
+                          atol=LOGIT_ATOL), "cli.test scores: card != CPU")
+        logits = []
+        for device in (dev, "cpu"):
+            pred = DMCPredictor.from_checkpoint(directory,
+                                                num_class=NUM_CLASS,
+                                                device=device)
+            with torch.inference_mode():
+                logits.append(pred.model.classify(pred.model.generate(
+                    val_batch["mv"][:n].to(device),
+                    val_batch["residual"][:n].to(device))).cpu())
+        check(bool(torch.isfinite(logits[0]).all())
+              and tuple(segment_consensus(logits[0], SEGMENTS).shape)
+              == (n, NUM_CLASS), "served logits")
+        check(torch.allclose(logits[0], logits[1], rtol=LOGIT_RTOL,
+                             atol=LOGIT_ATOL), "served logits: card != CPU")
+        print(f"  the directory scored by cli.test --weights "
+              f"({GAN_TEST_VIDEOS} videos x 3 x 10 crops; max |card - CPU| "
+              f"{float(np.abs(scored[0] - scored[1]).max()):.3g}) and served "
+              f"by DMCPredictor.from_checkpoint ({n} videos; max |card - "
+              f"CPU| {float((logits[0] - logits[1]).abs().max()):.3g}), "
+              f"rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}")
+    finally:
+        tckpt.wait_for_checkpoints()
+        multihost.shutdown()
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    print(f"  launches around the phase: {launches} (no TPU kernel lies on "
+          "the parallel or checkpoint path)")
+    check(not any(launches.values()), "the dist phase launched B1 or B2")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  dist phase {phase_s:.1f} s")
+    return {"timing": timing, "loops": {
+        k: {x: v[x] for x in ("loop_s", "save_block_s", "step_bytes")}
+        for k, v in loops.items()}, "launches": launches,
+        "phase_s": phase_s}
+
+
 def synthetic_clip_dataset(pool, num_videos, clip_length, device, cache):
     """A `VideoClipDataset` over synthetic GOPs instead of decoded video:
     its own sampling, retries and item contract ((T, H, W, 7) uint8 clip,
@@ -1857,8 +2167,9 @@ def main():
     gan = in_workdir(gan_phase, torch, bt, dev, gops, smi)
     i3d = in_workdir(i3d_phase, torch, bt, dev, gops)
     i3d_train = in_workdir(i3d_train_phase, torch, bt, dev, gops, smi)
+    dist_numbers = in_workdir(dist_phase, torch, bt, dev, gops, smi)
 
-    # 12. videos --------------------------------------------------------------
+    # 13. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -1935,7 +2246,7 @@ def main():
                       "codec_ms": codec_times,
                       "data_ms": data["times"], "train": train,
                       "gan": gan, "i3d": i3d, "i3d_train": i3d_train,
-                      "card": smi}))
+                      "dist": dist_numbers, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

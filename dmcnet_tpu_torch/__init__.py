@@ -24,7 +24,11 @@ package's module names so every counterpart can be found:
                   freeze phase, the GAN's alternating D and G steps, the
                   I3D D and G macro steps (iter-size accumulation, the
                   `.grad` carry) and eval step, the I3D LR driver and
-                  callbacks, meters and metric lists, checkpoints
+                  callbacks, meters and metric lists, checkpoints (torch
+                  files, the JAX package's msgpack files, step directories
+                  on torch.distributed.checkpoint)
+  parallel/       process groups and per-rank batch rows, data parallelism
+                  with global-batch BatchNorm, FSDP2
   utils/          JSON-lines metrics log
   serving         DMCPredictor: compressed video in, action scores out
   cli/            serve (batch / stdin scoring), train, train_gan, test

@@ -5,10 +5,12 @@
 Reference: code/dmcnet_I3D/test/evaluate_video_{hmdb,ucf101}_i3d.py:98-253:
 RandomSampling clips, `--num-sample` rounds per video with per-video score
 averaging (float64), the npz dump {scores (N, C), labels, top1} and the
-samples/sec report.  `--load-weights` reads torch files: the port's
-`state_dict`, or a reference I3D `.pth` (`models.weights.
-load_reference_i3d`).  The JAX package's msgpack checkpoints and orbax
-directories (ROADMAP A item 2) and `--shard-time` (A item 9) raise.
+samples/sec report.  `--load-weights` reads a torch file (the port's
+`state_dict` or checkpoint, or a reference I3D `.pth`, through
+`models.weights.load_reference_i3d`), a JAX package msgpack checkpoint or
+a step directory of the port's `--ckpt-backend orbax`; a JAX orbax
+directory raises naming its format, as does `--shard-time` (ROADMAP A
+item 9).
 
     python -m dmcnet_tpu_torch.cli.evaluate_video_i3d --dataset HMDB51 \\
         --split 1 --clip-length 250 --modality flow+mp4 \\
@@ -20,11 +22,8 @@ directories (ROADMAP A item 2) and `--shard-time` (A item 9) raise.
 from __future__ import annotations
 
 import argparse
-import os
-import pickletools
 import sys
 import time
-import zipfile
 
 import numpy as np
 import torch
@@ -43,7 +42,11 @@ from dmcnet_tpu_torch.data.video_iter import (
 )
 from dmcnet_tpu_torch.models.i3d import get_symbol
 from dmcnet_tpu_torch.models.weights import load_reference_i3d
+from dmcnet_tpu_torch.train.checkpoints import read_model_state
 from dmcnet_tpu_torch.train.engine_i3d import make_i3d_eval_step
+from dmcnet_tpu_torch.train.jax_checkpoint import (  # noqa: F401 (old name)
+    is_jax_checkpoint,
+)
 from dmcnet_tpu_torch.train.metrics import topk_accuracy
 
 
@@ -64,8 +67,9 @@ def build_parser():
                    help='sampling rounds per video')
     p.add_argument('--batch-size', type=int, default=1)
     p.add_argument('--load-weights', type=str, required=True,
-                   help='a torch file: the port\'s state_dict or a '
-                        'reference I3D .pth')
+                   help='a torch file (the port\'s state_dict or checkpoint, '
+                        'or a reference I3D .pth), a JAX msgpack checkpoint '
+                        'or a --ckpt-backend orbax directory')
     p.add_argument('--score-file', type=str, default=None)
     p.add_argument('--data-root', type=str, required=True)
     p.add_argument('--video-prefix', type=str, required=True)
@@ -79,33 +83,14 @@ def build_parser():
     return p
 
 
-def is_jax_checkpoint(path):
-    """Whether `path` is the JAX package's checkpoint: a pickle of {meta,
-    state (msgpack bytes)}, read by its opcodes without unpickling."""
-    if zipfile.is_zipfile(path):
-        return False
-    with open(path, "rb") as f:
-        try:
-            names = {arg for _, arg, _ in pickletools.genops(f)
-                     if isinstance(arg, str)}
-        except ValueError:  # not a pickle
-            return False
-    return {"meta", "state"} <= names
-
-
 def load_weights(net, path, modality):
-    """--load-weights into `net`: torch files only.  Every parameter and BN
+    """--load-weights into `net`, in any of the port's formats
+    (`train.checkpoints.read_model_state`).  Every parameter and BN
     statistic of `net` must come from the file (a 3-channel stem adapted to
     a 2-channel model counts), as the JAX command's checkpoint restore
     demands; a file that leaves any of them at its initialisation raises."""
-    refuse_unported([
-        (os.path.isdir(path), "--load-weights <orbax directory>",
-         "A item 2 (checkpoint formats)"),
-        (os.path.isfile(path) and is_jax_checkpoint(path),
-         "--load-weights <JAX msgpack checkpoint>",
-         "A item 2 (checkpoint formats)"),
-    ])
-    report, unfilled = load_reference_i3d(path, net, modality)
+    report, unfilled = load_reference_i3d(read_model_state(path), net,
+                                          modality)
     print(f"loaded --load-weights {path}: {report}")
     if unfilled:
         shown = ", ".join(unfilled[:8]) + (", ..." if len(unfilled) > 8

@@ -185,7 +185,8 @@ def main(argv=None):
 
     if args.mesh_devices:
         raise NotImplementedError(
-            '--mesh-devices: serving over several cards is not ported yet')
+            '--mesh-devices: serving over several cards is not ported yet '
+            '(ROADMAP A item 9, with A4)')
 
     predictor = DMCPredictor.from_checkpoint(
         args.weights, num_class=num_class, arch=args.arch,

@@ -7,7 +7,9 @@ bit-compatible `.npz` score dump: `scores` is an object array of (score
 (1, C) float array, label) pairs REORDERED by sorted video name (reference
 test.py:183-198), plus `labels` and `names`, so the reference combine.py /
 run_combine.sh consume it unchanged.  `--weights` takes the port's
-checkpoint or a reference `.pth.tar`; `--plain 1` scores the bare TSN
+checkpoint or a reference `.pth.tar`, a JAX package msgpack checkpoint or
+a `--ckpt-backend orbax` step directory (a partial load, as in JAX);
+`--plain 1` scores the bare TSN
 backbone on the modality input (`models.tsn.PlainTSN`).  `--arch_d` scores
 a GAN checkpoint with its discriminator, built for `--input_size`, and
 prints the G adversarial accuracy: the share of generated cues the
@@ -58,7 +60,9 @@ def build_parser():
     parser.add_argument('--flow-root', type=str)
     parser.add_argument('--data-flow', type=str, default='tvl1')
     parser.add_argument('--test-list', type=str)
-    parser.add_argument('--weights', type=str)
+    parser.add_argument('--weights', type=str,
+                        help='a torch file, a JAX msgpack checkpoint or a '
+                             '--ckpt-backend orbax directory')
     parser.add_argument('--batch-size', default=1, type=int,
                         help='kept for flag parity: videos are scored one '
                              'at a time, as the reference does')

@@ -1,4 +1,4 @@
-"""dmcnet training command on one card — the port's counterpart of
+"""dmcnet training command — the port's counterpart of
 `dmcnet_tpu/cli/train.py`, flag-compatible with reference
 code/dmcnet/train.py (and, with `gan` — `cli/train_gan.py` — with
 code/dmcnet_GAN/train.py), plus `--device` (default `cuda`):
@@ -20,18 +20,39 @@ its freeze phase steps the classifier at lr 0.  `train()` holds the epoch
 loop and takes the datasets, so a caller with its own datasets drives the
 same loop.  The
 ragged last validation batch runs at its own size (the JAX package pads it
-to keep one compiled shape); the means are the same.  Flags of slices not
-ported yet raise `SystemExit` naming their ROADMAP item.
+to keep one compiled shape); the means are the same.
+
+Checkpoints: `--ckpt-backend msgpack` (the default) writes the torch file
+`<prefix>_<representation>_checkpoint.pth.tar`; `orbax` and `orbax-async`
+write step directories `<that name>.orbax/<epoch>/` through
+`torch.distributed.checkpoint` (`train/checkpoints.save_checkpoint_dcp`),
+the second in the background.  `--resume` reads a torch file, a JAX
+package file or such a directory; `--auto-resume` finds the run's own and
+skips a torn step.
+
+Several processes (`parallel/`): `--dist-coordinator host:port
+--dist-num-processes N --dist-process-id R` starts rank R of N (NCCL and
+gloo on the card, gloo alone with `--device cpu`), and `--gpus` with
+several ids starts one process per id on this host.  Each rank assembles
+its rows of the global batch, BatchNorm normalizes over the global batch
+and the gradients are averaged, so a step is the single-process step on
+the global batch; `--fsdp 1` shards parameters and moments with FSDP2 and
+then, across processes, needs a directory backend.  Rank 0 alone prints,
+logs and writes torch files; every rank writes its shards of a directory.
+`--fsdp` on one process has nothing to shard and says so.  `--tp` and
+`--profile-dir` raise `SystemExit` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import socket
 import sys
 import time
 
 import torch
+import torch.multiprocessing as mp
 
 from dmcnet_tpu_torch.cli.common import (
     device_for,
@@ -47,11 +68,24 @@ from dmcnet_tpu_torch.data.dmc_dataset import (
 )
 from dmcnet_tpu_torch.data.loader import PrefetchLoader
 from dmcnet_tpu_torch.models.tsn import DMCNet
+from dmcnet_tpu_torch.parallel.mesh import all_reduce_mean, all_reduce_sum
+from dmcnet_tpu_torch.parallel.multihost import (
+    initialize_distributed,
+    local_shard_indices,
+    process_seed,
+    shutdown,
+    world,
+)
 from dmcnet_tpu_torch.train.checkpoints import (
+    best_name,
+    checkpoint_format,
     checkpoint_name,
+    dcp_checkpoint_committed,
     load_checkpoint,
     load_reference_weights,
     save_checkpoint,
+    save_checkpoint_dcp,
+    wait_for_checkpoints,
 )
 from dmcnet_tpu_torch.train.engine import make_eval_step, make_train_step
 from dmcnet_tpu_torch.train.engine_gan import make_gan_train_steps
@@ -83,6 +117,10 @@ def build_model(args, num_class, input_size=224):
 
 
 def make_datasets(args):
+    """The train and validation `CoviarDataset`s of `args`.  A training
+    dataset draws its videos from its seed and a counter, whatever the
+    index, so each rank seeds its own (`process_seed`): with one seed every
+    rank would draw the same videos."""
     common = dict(
         data_root=args.data_root, flow_root=args.flow_root,
         representation=args.representation, num_segments=args.num_segments,
@@ -93,7 +131,7 @@ def make_datasets(args):
         new_length=args.new_length, gop_cache_mb=args.gop_cache_mb,
         reader_cache=args.reader_cache)
     return (CoviarDataset(video_list=args.train_list, is_train=True,
-                          **common),
+                          seed=process_seed(0), **common),
             CoviarDataset(video_list=args.test_list, is_train=False,
                           **common))
 
@@ -107,15 +145,52 @@ class TrainResult:
     #                            (averages, s) and the per-batch lists
     #                            data_times, batch_times
     checkpoint: str = None     # the last checkpoint written, if any
+    saves: list = dataclasses.field(default_factory=list)
+    #                            per save: {epoch, is_best, checkpoint_s,
+    #                            best_s}, the s the loop blocked on the
+    #                            checkpoint and on a directory's best copy
 
 
 def flush_pending(pending, meters):
     """Read the deferred device metrics into the meters (exact values; the
-    deferral only keeps a device sync off every step)."""
+    deferral only keeps a device sync off every step), each averaged over
+    the ranks first, which makes them the global batch's (the ranks' rows
+    are equally many)."""
+    flat = iter(all_reduce_mean([v for metrics, _ in pending
+                                 for v in metrics.values()]))
     for metrics, n in pending:
-        for k, v in metrics.items():
-            meters[k].update(v.item(), n)
+        for k in metrics:
+            meters[k].update(next(flat), n * world()[1])
     pending.clear()
+
+
+def _silent(*args, **kwargs):
+    pass
+
+
+def _place(model, optimizers_fn, args, parallel):
+    """Across processes: global-batch BN swapped into `model`, FSDP2 with
+    `--fsdp`, and the optimizers (`optimizers_fn()`, built after the
+    sharding) averaging their gradients before each step."""
+    if parallel:
+        from dmcnet_tpu_torch.parallel.mesh import (
+            sync_gradients,
+            use_global_batchnorm,
+        )
+
+        use_global_batchnorm(model)
+        if args.fsdp:
+            from dmcnet_tpu_torch.parallel.fsdp import shard_model
+
+            shard_model(model)
+    optimizers = optimizers_fn()
+    if parallel:
+        if args.fsdp:
+            from dmcnet_tpu_torch.parallel.fsdp import loop_optimizers
+
+            loop_optimizers(optimizers)
+        sync_gradients(optimizers)
+    return optimizers
 
 
 def train(args, train_ds, val_ds, *, device, input_size=224):
@@ -125,15 +200,21 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     model one.  `input_size` is the reference's fixed 224 (model.py:306)
     unless a caller shrinks it."""
     device = torch.device(device)
+    rank, world_size = world()
+    parallel = world_size > 1
+    say = print if rank == 0 else _silent
     gan = getattr(args, "arch_d", None) is not None
     num_class = num_classes_for(args.data_name)
     model = build_model(args, num_class, input_size).to(device)
     if args.packed_gen:
-        print(f"--packed-gen {args.packed_gen}: the port trains the unpacked "
-              "layout (packing is an exact reparameterization of it)")
+        say(f"--packed-gen {args.packed_gen}: the port trains the unpacked "
+            "layout (packing is an exact reparameterization of it)")
+    if args.fsdp and not parallel:
+        say("--fsdp 1 on one process: nothing to shard")
     scale_size = input_size * 256 // 224
     train_asm = BatchAssembler(train_ds, input_size=input_size,
-                               scale_size=scale_size)
+                               scale_size=scale_size,
+                               seed=process_seed(0))
     val_asm = BatchAssembler(val_ds, input_size=input_size,
                              scale_size=scale_size, test_crops=1)
     aug = dict(representation=args.representation,
@@ -146,26 +227,38 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     # the same from the same seeds.
     sample = augment_train_batch(
         train_asm.train_batch(range(min(2, len(train_ds)))), **aug)
-    print("sample batch: " + ", ".join(
+    say("sample batch: " + ", ".join(
         f"{k} {tuple(v.shape)}" for k, v in sorted(sample.items())))
 
-    optimizers = make_optimizers(model, args.lr_cls_mult, args.lr_mse_mult,
-                                 args.lr_d_mult if gan else None)
     start_epoch, best_prec1 = 0, 0.0
     if args.weights:
         skipped, missing = load_reference_weights(model, args.weights)
-        print(f"loaded --weights {args.weights} (skipped {len(skipped)}, "
-              f"missing {len(missing)})")
+        say(f"loaded --weights {args.weights} (skipped {len(skipped)}, "
+            f"missing {len(missing)})")
+    optimizers = _place(model, lambda: make_optimizers(
+        model, args.lr_cls_mult, args.lr_mse_mult,
+        args.lr_d_mult if gan else None), args, parallel)
+    directory = args.ckpt_backend.startswith("orbax")
     if args.auto_resume and not args.resume:
         cand = checkpoint_name(args.model_prefix, args.representation)
-        if os.path.exists(cand):
+        if directory:
+            cand += ".orbax"
+            ok = dcp_checkpoint_committed(cand)  # skips a torn write
+        else:
+            ok = os.path.exists(cand)
+        # every rank must see it, or the ranks' programs part ways
+        ok = all_reduce_sum([float(ok)])[0] == world_size
+        if ok:
             args.resume = cand
-            print(f"--auto-resume: found {cand}")
+            say(f"--auto-resume: found {cand}")
     if args.resume:
+        if parallel and args.fsdp and checkpoint_format(args.resume) != "dcp":
+            raise SystemExit("--fsdp across processes resumes from a "
+                             "--ckpt-backend orbax directory")
         meta = load_checkpoint(args.resume, model, optimizers)
         start_epoch = meta["epoch"]
         best_prec1 = meta["best_prec1"] or 0.0
-        print(f"=> loaded checkpoint '{args.resume}' (epoch {start_epoch})")
+        say(f"=> loaded checkpoint '{args.resume}' (epoch {start_epoch})")
 
     steps = dict(num_segments=args.num_segments, lr_cls_w=args.lr_cls,
                  lr_mse_w=args.lr_mse, loss_mse=args.loss_mse,
@@ -180,22 +273,24 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     metric_keys = _METRICS + (_GAN_METRICS if gan else ())
 
     bs = args.batch_size
+    rows = list(local_shard_indices(bs))
     batches_per_epoch = max(1, len(train_ds) // bs)
     result = TrainResult(best_prec1, model, optimizers, [])
-    mlog = MetricsLogger(args.metrics_jsonl)
+    mlog = MetricsLogger(args.metrics_jsonl if rank == 0 else None)
     try:
         for epoch in range(start_epoch, args.epochs):
             lr = step_decay_lr(args.lr, epoch, args.lr_steps, args.lr_decay)
             freeze = epoch < args.epoch_thre
-            print(f"current epoch freeze?: {freeze}")
+            say(f"current epoch freeze?: {freeze}")
             if gan:  # the classifier steps at lr 0 while frozen
                 adjust_learning_rate(optimizers[:1], 0.0 if freeze else lr,
                                      args.weight_decay)
                 adjust_learning_rate(optimizers[1:], lr, args.weight_decay)
             else:
                 adjust_learning_rate(optimizers, lr, args.weight_decay)
+            # each rank assembles only its rows of the global batch
             loader = PrefetchLoader(
-                lambda i: train_asm.train_batch(range(i * bs, (i + 1) * bs)),
+                lambda i: train_asm.train_batch([i * bs + j for j in rows]),
                 batches_per_epoch, workers=args.workers)
             meters = {k: AverageMeter()
                       for k in ("batch_time", "data_time") + metric_keys}
@@ -234,7 +329,7 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                                 f"\tacc_D_adv {meters['acc_D_adv'].avg:.3f}"
                                 f"\tacc_G_adv {meters['acc_G_adv'].avg:.3f}")
                         extra["loss_adv"] = meters["loss_adv"].avg
-                    print(line)
+                    say(line)
                     mlog.log("train", epoch=epoch, step=i, lr=lr,
                              loss=meters["loss"].avg,
                              top1=meters["top1"].avg,
@@ -255,62 +350,171 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                 best_prec1 = max(prec1, best_prec1)
                 result.best_prec1 = best_prec1
                 if is_best or epoch % SAVE_FREQ == 0:
-                    name = checkpoint_name(args.model_prefix,
-                                           args.representation)
                     meta = {"epoch": epoch + 1, "arch": args.arch,
                             "best_prec1": best_prec1}
-                    result.checkpoint = save_checkpoint(
-                        model, meta, name, optimizers, is_best)
-                    if args.save_reference_ckpt:
-                        ref = save_checkpoint(model, meta,
-                                              name + ".ref.pth.tar")
-                        print(f"reference-format checkpoint: {ref}")
+                    save = {"epoch": epoch, "is_best": is_best}
+                    result.checkpoint = _save(args, model, optimizers, meta,
+                                              is_best, rank, save)
+                    result.saves.append(save)
     finally:
         mlog.close()
+        wait_for_checkpoints()  # background writes commit before returning
     return result
+
+
+def _save(args, model, optimizers, meta, is_best, rank, times):
+    """The epoch's checkpoint in `--ckpt-backend`'s format (a directory
+    beside a best copy, or rank 0's torch file), and `--save-reference-ckpt`'s
+    reference-layout file beside it; returns the checkpoint's path.
+    `times` gets the s spent on the checkpoint (`checkpoint_s`, a torch
+    file's best copy included) and on a directory's best copy (`best_s`,
+    None without one).  An orbax-async best copy drains the checkpoint's
+    write first, as the JAX package's does: it blocks for a full write."""
+    name = checkpoint_name(args.model_prefix, args.representation)
+    t0 = time.perf_counter()
+    times["best_s"] = None
+    if args.ckpt_backend.startswith("orbax"):
+        wait = args.ckpt_backend != "orbax-async"
+        opts = dict(zip(("optimizer_cls", "optimizer_gf", "optimizer_d"),
+                        optimizers))
+        path = save_checkpoint_dcp(model, meta, name + ".orbax", opts,
+                                   wait=wait)
+        times["checkpoint_s"] = time.perf_counter() - t0
+        if is_best:  # a best-model copy (reference train.py:375)
+            t0 = time.perf_counter()
+            save_checkpoint_dcp(model, meta, best_name(name) + ".orbax",
+                                opts, wait=wait)
+            times["best_s"] = time.perf_counter() - t0
+    else:
+        path = (save_checkpoint(model, meta, name, optimizers, is_best)
+                if rank == 0 else name)
+        times["checkpoint_s"] = time.perf_counter() - t0
+    if args.save_reference_ckpt:
+        state = None
+        if args.fsdp and world()[1] > 1:  # every rank gathers its shards
+            from dmcnet_tpu_torch.parallel.fsdp import gather_state
+
+            state = gather_state(model)
+        if rank == 0:
+            ref = save_checkpoint(model, meta, name + ".ref.pth.tar",
+                                  state_dict=state)
+            print(f"reference-format checkpoint: {ref}")
+    return path
 
 
 def validate(val_asm, eval_step, batch_size, aug):
     """Reference validate() (train.py:292-369): Prec@1 over the validation
-    set, batch by batch; returns it."""
-    top1, losses = AverageMeter(), AverageMeter()
+    set, batch by batch; returns it.  Each rank scores its rows of each
+    batch and the sums are all-reduced, so Prec@1 and the loss are the
+    global ones.  A rank with no row left in the ragged last batch scores
+    the last row and counts it 0 times: FSDP2's forward gathers the
+    shards on every rank."""
     n = len(val_asm.ds)
+    rows = list(local_shard_indices(batch_size))
+    sums = [0.0, 0.0, 0.0]       # top1 x rows, loss x rows, rows
     for start in range(0, n, batch_size):
-        idx = range(start, min(start + batch_size, n))
-        m = eval_step(augment_eval_batch(val_asm.eval_batch(idx), **aug))
-        top1.update(m["top1"].item(), len(idx))
-        losses.update(m["loss"].item(), len(idx))
-    print(f"Testing Results: Prec@1 {top1.avg:.3f} Loss {losses.avg:.5f}")
-    return top1.avg
+        stop = min(start + batch_size, n)
+        idx = [start + j for j in rows if start + j < stop]
+        m = eval_step(augment_eval_batch(
+            val_asm.eval_batch(idx or [stop - 1]), **aug))
+        sums[0] += m["top1"].item() * len(idx)
+        sums[1] += m["loss"].item() * len(idx)
+        sums[2] += len(idx)
+    top1_sum, loss_sum, count = all_reduce_sum(sums)
+    prec1, loss = top1_sum / count, loss_sum / count
+    if world()[0] == 0:
+        print(f"Testing Results: Prec@1 {prec1:.3f} Loss {loss:.5f}")
+    return prec1
 
 
 def main(argv=None, gan=False, input_size=224):
     """`gan` selects the dmcnet_GAN parser, whose `--arch_d` makes
     `train()` the dmcnet_GAN trainer; `input_size` defaults to the
     reference's fixed 224, and tests shrink it."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser(gan=gan).parse_args(argv)
-    print("Training arguments:")
-    for k, v in sorted(vars(args).items()):
-        print(f"\t{k}: {v}")
     refuse_unported([
-        (args.fsdp, "--fsdp", "A item 9 (parallel layer)"),
         ((args.tp or 0) > 1, "--tp > 1", "A item 9 (parallel layer)"),
-        (args.gpus is not None and len(args.gpus) > 1,
-         "--gpus with several ids", "A item 9 (parallel layer)"),
-        (args.dist_coordinator is not None
-         or args.dist_num_processes is not None
-         or args.dist_process_id is not None,
-         "--dist-*", "A item 9 (parallel layer)"),
-        (args.ckpt_backend.startswith("orbax"),
-         f"--ckpt-backend {args.ckpt_backend}",
-         "A item 2 (checkpoint formats)"),
         (args.profile_dir is not None, "--profile-dir",
          "A item 10 (utils/profiling)"),
     ])
+    spawn = args.gpus and len(args.gpus) > 1 and \
+        args.dist_num_processes is None
+    n_proc = len(args.gpus) if spawn else (args.dist_num_processes or 1)
+    if n_proc > 1:
+        if args.fsdp and not args.ckpt_backend.startswith("orbax"):
+            raise SystemExit(
+                "--fsdp across processes requires --ckpt-backend orbax (a "
+                "torch file holds the full state, which no process holds)")
+        if args.batch_size % n_proc:
+            raise SystemExit(
+                f"--batch-size {args.batch_size} must be divisible by the "
+                f"number of processes ({n_proc})")
+    if spawn:
+        return spawn_ranks(argv, args.gpus, gan, input_size)
     device = device_for(args)
-    train_ds, val_ds = make_datasets(args)
-    return train(args, train_ds, val_ds, device=device,
-                 input_size=input_size).best_prec1
+    if device.type == "cuda" and args.dist_num_processes:
+        if not args.gpus:  # rank r drives card r of its host
+            device = torch.device(
+                "cuda", (args.dist_process_id or 0)
+                % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    initialize_distributed(args.dist_coordinator, args.dist_num_processes,
+                           args.dist_process_id, device=device.type)
+    try:
+        if world()[0] == 0:
+            print("Training arguments:")
+            for k, v in sorted(vars(args).items()):
+                print(f"\t{k}: {v}")
+        train_ds, val_ds = make_datasets(args)
+        return train(args, train_ds, val_ds, device=device,
+                     input_size=input_size).best_prec1
+    finally:
+        shutdown()
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank, argv, gpus, gan, input_size, port, results):
+    argv = list(argv) + [
+        "--gpus", str(gpus[rank]), "--dist-coordinator",
+        f"localhost:{port}", "--dist-num-processes", str(len(gpus)),
+        "--dist-process-id", str(rank)]
+    out = main(argv, gan=gan, input_size=input_size)
+    if rank == 0:
+        results.put(out)
+
+
+def spawn_ranks(argv, gpus, gan=False, input_size=224):
+    """`--gpus` with several ids: one process per id on this host, rank r
+    on card `gpus[r]` (with `--device cpu`, gloo processes on the CPU),
+    joined at a free local port.  Returns rank 0's result; a rank that
+    fails raises."""
+    ctx = mp.get_context("spawn")
+    results = ctx.SimpleQueue()
+    port = _free_port()
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, argv, gpus, gan, input_size, port, results))
+        for r in range(len(gpus))]
+    for p in procs:
+        p.start()
+    failed = []
+    while any(p.is_alive() for p in procs) and not failed:
+        procs[0].join(timeout=0.5)
+        failed = [r for r, p in enumerate(procs) if p.exitcode not in
+                  (None, 0)]
+    for p in procs:  # a failed rank leaves the others at a collective
+        if failed and p.is_alive():
+            p.terminate()
+        p.join()
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        raise SystemExit(f"training ranks {failed} of {len(gpus)} failed")
+    return results.get()
 
 
 if __name__ == "__main__":

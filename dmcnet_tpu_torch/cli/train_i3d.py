@@ -24,10 +24,14 @@ optimizers, the discriminator's kept with its moments and step count, the
 carried `.grad` kept); per-epoch evaluation with softmax scores, top-1 and
 `score_best.npz` {scores (N, C), labels, top1}; a checkpoint
 `{model_prefix}_ep-{epoch:04d}.pth` after epoch 0 and every
-`--save-frequency` epochs (`train/checkpoints.save_i3d_checkpoint`), and
-`--resume-epoch` / `--auto-resume`.  The microbatches of a macro step come
-from `PrefetchLoader` threads in the JAX command's sample order and reach
-the card one at a time.
+`--save-frequency` epochs (`train/checkpoints.save_i3d_checkpoint`), or
+with `--ckpt-backend orbax | orbax-async` the step directory
+`{model_prefix}_ep-{epoch:04d}.pth.orbax/<epoch>/` written through
+`torch.distributed.checkpoint` (the second in the background), and
+`--resume-epoch` / `--auto-resume`, which read the port's torch files, the
+JAX package's files or such directories and skip a torn step.  The
+microbatches of a macro step come from `PrefetchLoader` threads in the JAX
+command's sample order and reach the card one at a time.
 
 Differences from the JAX command:
   * it trains flow+mp4 clips through a generator only: the JAX steps read
@@ -38,9 +42,8 @@ Differences from the JAX command:
     raises instead of being skipped;
   * the TPU workarounds `--accum-chunk`, `--remat` and `--packed-gen` parse
     and change nothing (accumulation is sequential here already);
-  * `--ckpt-backend` writes the port's torch files; orbax raises (ROADMAP A
-    item 2), as do `--tp`, `--fsdp`, `--dist-*` and several `--gpus` (A
-    item 9).
+  * it trains on one process: `--tp`, `--fsdp`, `--dist-*` and several
+    `--gpus` raise (ROADMAP A item 9).
 """
 
 from __future__ import annotations
@@ -68,9 +71,12 @@ from dmcnet_tpu_torch.models.weights import (
     load_reference_i3d_2d,
 )
 from dmcnet_tpu_torch.train.checkpoints import (
+    dcp_checkpoint_committed,
     i3d_checkpoint_name,
     load_i3d_checkpoint,
     save_i3d_checkpoint,
+    save_i3d_checkpoint_dcp,
+    wait_for_checkpoints,
 )
 from dmcnet_tpu_torch.train.engine import _autocast
 from dmcnet_tpu_torch.train.engine_i3d import (
@@ -159,8 +165,9 @@ def build_parser(dataset_default="HMDB51"):
     p.add_argument('--ckpt-backend', type=str, default='msgpack',
                    choices=['msgpack', 'orbax', 'orbax-async'],
                    help="msgpack (the JAX package's name for its default) "
-                        "writes the port's torch checkpoints; orbax is not "
-                        "ported yet (ROADMAP A item 2)")
+                        "writes the port's torch checkpoints; orbax writes "
+                        "step directories (torch.distributed.checkpoint), "
+                        "orbax-async in the background")
     p.add_argument('--bf16', type=int, default=0,
                    help='mixed-precision training (bfloat16 autocast; '
                         'params/BN stats/losses stay float32)')
@@ -296,12 +303,19 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
         return make_i3d_steps(model, opts, adv=args.adv,
                               train_backbone=not frozen, bf16=bool(args.bf16))
 
+    directory = args.ckpt_backend.startswith("orbax")
+
     def ckpt_path(epoch):
-        return i3d_checkpoint_name(args.model_prefix, epoch)
+        name = i3d_checkpoint_name(args.model_prefix, epoch)
+        return name + ".orbax" if directory else name
+
+    def found(epoch):  # a torn step directory does not count
+        return (dcp_checkpoint_committed(ckpt_path(epoch)) if directory
+                else os.path.exists(ckpt_path(epoch)))
 
     if args.auto_resume and args.resume_epoch < 0:
         newest = next((e for e in range(args.end_epoch, 0, -1)
-                       if os.path.exists(ckpt_path(e))), -1)
+                       if found(e)), -1)
         if newest >= 0:
             args.resume_epoch = newest
             print(f"--auto-resume: epoch {newest}")
@@ -404,11 +418,18 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                                                1) == 0:
                 # ep-N is the state ready to train epoch N (reference
                 # epoch_end_callback, train/model.py:253-260)
-                result.checkpoint = save_i3d_checkpoint(
-                    model, opts, {"epoch": epoch + 1, "top1": top1,
-                                  "stage2": switched}, ckpt_path(epoch + 1))
+                meta = {"epoch": epoch + 1, "top1": top1,
+                        "stage2": switched}
+                if directory:
+                    result.checkpoint = save_i3d_checkpoint_dcp(
+                        model, opts, meta, ckpt_path(epoch + 1),
+                        wait=args.ckpt_backend != "orbax-async")
+                else:
+                    result.checkpoint = save_i3d_checkpoint(
+                        model, opts, meta, ckpt_path(epoch + 1))
     finally:
         mlog.close()
+        wait_for_checkpoints()  # drain background writes before returning
     return result
 
 
@@ -441,9 +462,6 @@ def main(argv=None, dataset_default="HMDB51", input_size=224):
          or args.dist_num_processes is not None
          or args.dist_process_id is not None,
          "--dist-*", "A item 9 (parallel layer)"),
-        (args.ckpt_backend.startswith("orbax"),
-         f"--ckpt-backend {args.ckpt_backend}",
-         "A item 2 (checkpoint formats)"),
     ])
     if args.modality != "flow+mp4" or not args.arch_estimator:
         raise SystemExit("train_i3d trains flow+mp4 clips through a "

@@ -3,8 +3,9 @@ flag-compatible with reference code/dmcnet/train_options.py:12-91 and,
 with `gan`, the dmcnet_GAN additions (train_options.py:37-38,74-77,88),
 plus `--device`.
 
-Flags of slices not ported yet are parsed, so the reference scripts still
-parse, and `cli/train.py` refuses them by name with their ROADMAP item.
+Flags of slices not ported yet (`--tp`, `--profile-dir`) are parsed, so
+the reference scripts still parse, and `cli/train.py` refuses them by name
+with their ROADMAP item.
 """
 
 import argparse
@@ -64,7 +65,10 @@ def build_parser(gan=False):
 
     # Training.
     parser.add_argument('--weights', default=None, type=str)
-    parser.add_argument('--resume', default=None, type=str)
+    parser.add_argument('--resume', default=None, type=str,
+                        help='a checkpoint to continue: the port\'s torch '
+                             'file, a JAX package msgpack file, or a '
+                             '--ckpt-backend orbax directory.')
     parser.add_argument('--epochs', default=500, type=int,
                         help='number of training epochs.')
     parser.add_argument('--epoch-thre', default=500, type=int,
@@ -105,15 +109,19 @@ def build_parser(gan=False):
                         help="prefix of model name.")
     parser.add_argument('--gpus', nargs='+', type=int, default=None,
                         help='card ids; one id selects cuda:<id>, several '
-                             'need the parallel layer (not ported yet, '
-                             'ROADMAP A item 9) and raise.')
+                             'start one data-parallel process per id on '
+                             'this host (with --device cpu, gloo processes '
+                             'on the CPU).')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device to train on (cuda, cuda:N, cpu).')
     parser.add_argument('--dist-coordinator', type=str, default=None,
-                        help='multi-host training: not ported yet (ROADMAP A '
-                             'item 9); raises when set.')
-    parser.add_argument('--dist-num-processes', type=int, default=None)
-    parser.add_argument('--dist-process-id', type=int, default=None)
+                        help='host:port of rank 0 for multi-process '
+                             'training (torch.distributed, tcp://); needs '
+                             '--dist-num-processes and --dist-process-id.')
+    parser.add_argument('--dist-num-processes', type=int, default=None,
+                        help='number of training processes (ranks).')
+    parser.add_argument('--dist-process-id', type=int, default=None,
+                        help='this process\'s rank.')
     parser.add_argument('--metrics-jsonl', type=str, default=None,
                         help='append one JSON object per train/eval log '
                              'event (machine-readable twin of the stdout '
@@ -126,8 +134,10 @@ def build_parser(gan=False):
                         choices=['msgpack', 'orbax', 'orbax-async'],
                         help='msgpack (the default) writes the torch '
                              '.pth.tar checkpoint with the reference naming; '
-                             'orbax and orbax-async are not ported yet '
-                             '(ROADMAP A item 2) and raise.')
+                             'orbax writes step directories <name>.orbax/'
+                             '<epoch>/ through torch.distributed.checkpoint '
+                             '(each rank its shards), orbax-async the same '
+                             'in the background.')
     parser.add_argument('--bf16', type=int, default=0,
                         help='mixed-precision training: convolutions and '
                              'matmuls in bfloat16 (torch.autocast), params, '
@@ -140,8 +150,9 @@ def build_parser(gan=False):
                              'runs the unpacked layout whatever the value '
                              'and says so.')
     parser.add_argument('--fsdp', type=int, default=0,
-                        help='sharded parameters and moments: not ported '
-                             'yet (ROADMAP A item 9); raises when set.')
+                        help='shard parameters and optimizer moments over '
+                             'the processes (FSDP2); across processes it '
+                             'needs --ckpt-backend orbax.')
     parser.add_argument('--tp', type=int, default=0,
                         help='tensor parallelism degree: not ported yet '
                              '(ROADMAP A item 9); raises when > 1.')

@@ -33,31 +33,43 @@ def _t(a):
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def _conv(out, key, node):
-    out[key + ".weight"] = _t(np.transpose(np.asarray(node["kernel"]),
-                                           (3, 2, 0, 1)))
+def _t_same(a):
+    """A leaf at its own precision: float64 stays float64."""
+    a = np.asarray(a)
+    return torch.from_numpy(np.array(
+        a, dtype=np.float64 if a.dtype == np.float64 else np.float32,
+        copy=True))
+
+
+def _conv(out, key, node, t):
+    out[key + ".weight"] = t(np.transpose(np.asarray(node["kernel"]),
+                                          (3, 2, 0, 1)))
     if "bias" in node:
-        out[key + ".bias"] = _t(node["bias"])
+        out[key + ".bias"] = t(node["bias"])
 
 
-def _bn(out, key, pnode, bnode):
-    out[key + ".weight"] = _t(pnode["scale"])
-    out[key + ".bias"] = _t(pnode["bias"])
-    out[key + ".running_mean"] = _t(bnode["mean"])
-    out[key + ".running_var"] = _t(bnode["var"])
-    out[key + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+def _bn(out, key, pnode, bnode, t):
+    """BN scale/bias -> weight/bias; the running statistics when `bnode`
+    has them (a tree of parameters alone has none)."""
+    out[key + ".weight"] = t(pnode["scale"])
+    out[key + ".bias"] = t(pnode["bias"])
+    if bnode:
+        out[key + ".running_mean"] = t(bnode["mean"])
+        out[key + ".running_var"] = t(bnode["var"])
+        out[key + ".num_batches_tracked"] = torch.tensor(0,
+                                                         dtype=torch.long)
 
 
-def _resnet(out, params, bstats, prefix):
+def _resnet(out, params, bstats, prefix, t):
     for name, node in params.items():
         bnode = bstats.get(name, {})
         if name == "conv1":
-            _conv(out, f"{prefix}.conv1", node)
+            _conv(out, f"{prefix}.conv1", node, t)
         elif name == "bn1":
-            _bn(out, f"{prefix}.bn1", node, bnode)
+            _bn(out, f"{prefix}.bn1", node, bnode, t)
         elif name == "fc":
-            out[f"{prefix}.fc.weight"] = _t(np.asarray(node["kernel"]).T)
-            out[f"{prefix}.fc.bias"] = _t(node["bias"])
+            out[f"{prefix}.fc.weight"] = t(np.asarray(node["kernel"]).T)
+            out[f"{prefix}.fc.bias"] = t(node["bias"])
         else:
             m = re.fullmatch(r"layer(\d)_(\d+)", name)
             if not m:
@@ -66,38 +78,38 @@ def _resnet(out, params, bstats, prefix):
             for sub, snode in node.items():
                 sb = bnode.get(sub, {})
                 if sub in ("conv1", "conv2"):
-                    _conv(out, f"{block}.{sub}", snode)
+                    _conv(out, f"{block}.{sub}", snode, t)
                 elif sub in ("bn1", "bn2"):
-                    _bn(out, f"{block}.{sub}", snode, sb)
+                    _bn(out, f"{block}.{sub}", snode, sb, t)
                 elif sub == "downsample_conv":
-                    _conv(out, f"{block}.downsample.0", snode)
+                    _conv(out, f"{block}.downsample.0", snode, t)
                 elif sub == "downsample_bn":
-                    _bn(out, f"{block}.downsample.1", snode, sb)
+                    _bn(out, f"{block}.downsample.1", snode, sb, t)
                 else:
                     raise KeyError(f"unknown resnet leaf {name}.{sub}")
 
 
-def _estimator(out, params, bstats, prefix):
+def _estimator(out, params, bstats, prefix, t):
     """Every estimator family, with the keys of
     `dmcnet_tpu/models/export_torch.py:91-112`."""
     for name, node in params.items():
         bnode = bstats.get(name, {})
         if re.fullmatch(r"conv_\d+(_mv|_r)?", name):
             # dense-family stage: Sequential(conv, LeakyReLU) -> .0
-            _conv(out, f"{prefix}.{name}.0", node)
+            _conv(out, f"{prefix}.{name}.0", node, t)
         elif name == "predict_flow" and "kernel" in node:
-            _conv(out, f"{prefix}.predict_flow", node)
+            _conv(out, f"{prefix}.predict_flow", node, t)
         elif name in ("predict_flow", "predict_att"):
             # ContextNetworkAtt heads: (conv, bn, LeakyReLU), the attention
             # one wrapped once more with its ReLU
             base = (f"{prefix}.{name}" if name == "predict_flow"
                     else f"{prefix}.{name}.0")
-            _conv(out, f"{base}.0", node["conv"])
-            _bn(out, f"{base}.1", node["bn"], bnode.get("bn", {}))
+            _conv(out, f"{base}.0", node["conv"], t)
+            _bn(out, f"{base}.1", node["bn"], bnode.get("bn", {}), t)
         elif re.fullmatch(r"stage_\d+", name):
             base = f"{prefix}.conv_context.{name.split('_')[1]}"
-            _conv(out, f"{base}.0", node["conv"])
-            _bn(out, f"{base}.1", node["bn"], bnode.get("bn", {}))
+            _conv(out, f"{base}.0", node["conv"], t)
+            _bn(out, f"{base}.1", node["bn"], bnode.get("bn", {}), t)
         else:
             raise KeyError(f"unknown gen_flow_model module {name!r}")
 
@@ -116,7 +128,7 @@ def _flattened_linear_w(kernel, c_last):
     return w.reshape(o, c_last * hw * hw)
 
 
-def _discriminator(out, params, bstats, prefix):
+def _discriminator(out, params, bstats, prefix, t):
     """`stage{s}_down` / `stage{s}_deep{i}` -> `discriminator_block_{s+1}`
     / `discriminator_block_{s+1}_{i+1}` (conv `.0`, BN `.3`), `adv_layer`."""
     blocks = {}
@@ -132,24 +144,25 @@ def _discriminator(out, params, bstats, prefix):
         key = f"{prefix}.discriminator_block_{stage + 1}" + (
             f"_{deep + 1}" if deep else "")
         node = params[name]
-        _conv(out, f"{key}.0", node["conv"])
+        _conv(out, f"{key}.0", node["conv"], t)
         if "bn" in node:
-            _bn(out, f"{key}.3", node["bn"], bstats.get(name, {}).get("bn",
-                                                                      {}))
+            _bn(out, f"{key}.3", node["bn"],
+                bstats.get(name, {}).get("bn", {}), t)
     adv = params["adv_layer"]
-    out[f"{prefix}.adv_layer.weight"] = _t(_flattened_linear_w(adv["kernel"],
+    out[f"{prefix}.adv_layer.weight"] = t(_flattened_linear_w(adv["kernel"],
                                                                c_last))
-    out[f"{prefix}.adv_layer.bias"] = _t(adv["bias"])
+    out[f"{prefix}.adv_layer.bias"] = t(adv["bias"])
 
 
-def _unit3d(out, key, pnode, bnode):
+def _unit3d(out, key, pnode, bnode, t):
     conv = pnode["conv3d"]
-    out[key + ".conv3d.weight"] = _t(np.transpose(np.asarray(conv["kernel"]),
+    out[key + ".conv3d.weight"] = t(np.transpose(np.asarray(conv["kernel"]),
                                                   (4, 3, 0, 1, 2)))
     if "bias" in conv:
-        out[key + ".conv3d.bias"] = _t(conv["bias"])
+        out[key + ".conv3d.bias"] = t(conv["bias"])
     if "batch3d" in pnode:
-        _bn(out, key + ".batch3d", pnode["batch3d"], bnode.get("batch3d", {}))
+        _bn(out, key + ".batch3d", pnode["batch3d"],
+            bnode.get("batch3d", {}), t)
 
 
 # flax Mixed branch names -> the reference's Sequential positions
@@ -158,38 +171,74 @@ _I3D_BRANCHES = {"branch_0": "branch_0", "branch_1a": "branch_1.0",
                  "branch_2b": "branch_2.1", "branch_3b": "branch_3.1"}
 
 
-def _i3d_module(out, top, node, bnode):
+def _i3d_module(out, top, node, bnode, t):
     if top.startswith("conv3d_"):
-        _unit3d(out, top, node, bnode)
+        _unit3d(out, top, node, bnode, t)
     elif top.startswith("mixed_"):
         for branch, sub in node.items():
             if branch not in _I3D_BRANCHES:
                 raise KeyError(f"unknown I3D branch {top}.{branch}")
             _unit3d(out, f"{top}.{_I3D_BRANCHES[branch]}", sub,
-                    bnode.get(branch, {}))
+                    bnode.get(branch, {}), t)
     elif top == "classifier":
-        out["classifier.weight"] = _t(np.asarray(node["kernel"]).T)
-        out["classifier.bias"] = _t(node["bias"])
+        out["classifier.weight"] = t(np.asarray(node["kernel"]).T)
+        out["classifier.bias"] = t(node["bias"])
     else:
         raise KeyError(f"module {top!r} is not ported")
 
 
-def state_dict_from_flax(params, batch_stats):
+def state_dict_from_flax(params, batch_stats, keep_dtype=False):
     """JAX-package {params, batch_stats} (nested dicts of arrays) of a
     DMCNet, PlainTSN or I3D -> the port's `state_dict` (float32 CPU
-    tensors)."""
+    tensors; float64 leaves stay float64 under `keep_dtype`)."""
+    t = _t_same if keep_dtype else _t
     out = {}
     for top, node in params.items():
         bnode = batch_stats.get(top, {})
         if top == "base_model":
-            _resnet(out, node, bnode, top)
+            _resnet(out, node, bnode, top, t)
         elif top == "gen_flow_model":
-            _estimator(out, node, bnode, top)
+            _estimator(out, node, bnode, top, t)
         elif top == "discriminator":
-            _discriminator(out, node, bnode, top)
+            _discriminator(out, node, bnode, top, t)
         else:
-            _i3d_module(out, top, node, bnode)
+            _i3d_module(out, top, node, bnode, t)
     return out
+
+
+def _placeholder(leaf, param):
+    """An optimizer's shape-() slot for a parameter it does not own
+    (`dmcnet_tpu/train/optimizers.py:76-86,124-128`)."""
+    return np.ndim(leaf) == 0 and np.ndim(param) > 0
+
+
+def _zip_trees(tree, params, fn, path=""):
+    """fn(leaf, param) over two nested dicts of one structure."""
+    if isinstance(params, dict):
+        if not isinstance(tree, dict) or set(tree) != set(params):
+            raise ValueError(f"tree at {path or '/'} does not match the "
+                             "parameters' structure")
+        return {k: _zip_trees(tree[k], params[k], fn, f"{path}/{k}")
+                for k in params}
+    return fn(np.asarray(tree), np.asarray(params))
+
+
+def param_tree_from_flax(tree, params):
+    """A tree shaped like flax `params` (Adam `mu` / `nu`, SGD momentum
+    buffers, `grad_acc`) -> {port parameter name: tensor, or None where the
+    tree holds a shape-() placeholder}, through the transposes of
+    `state_dict_from_flax` (HWIO -> OIHW, DHWIO -> OIDHW, the
+    discriminator's flattened linear).  `params` gives the shapes: a
+    placeholder means the optimizer keeps no state for that parameter,
+    never a value to broadcast.  Each leaf keeps its precision."""
+    full = _zip_trees(tree, params, lambda leaf, p: (
+        np.zeros(p.shape, leaf.dtype) if _placeholder(leaf, p) else leaf))
+    owned = _zip_trees(tree, params, lambda leaf, p: np.full(
+        p.shape, 0.0 if _placeholder(leaf, p) else 1.0, np.float32))
+    values = state_dict_from_flax(full, {}, keep_dtype=True)
+    mask = state_dict_from_flax(owned, {})
+    return {k: (v if bool(mask[k].all()) else None)
+            for k, v in values.items()}
 
 
 def state_dict_from_checkpoint(obj):

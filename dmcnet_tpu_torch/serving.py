@@ -26,7 +26,6 @@ from dmcnet_tpu_torch.codec.host_accumulate import gop_mv_residual_u8
 from dmcnet_tpu_torch.codec.mpeg4 import shared_reader_cache
 from dmcnet_tpu_torch.data.transforms import IMAGENET_STD, MEAN_STD
 from dmcnet_tpu_torch.models.tsn import DMCNet
-from dmcnet_tpu_torch.models.weights import state_dict_from_checkpoint
 from dmcnet_tpu_torch.ops.backtrace import backtrace_warp_batch
 
 
@@ -46,7 +45,8 @@ class DMCPredictor:
         CUDA tensors, its plain version on CPU tensors)."""
         if mesh:
             raise NotImplementedError(
-                "serving over a device mesh is not ported yet")
+                "serving over a device mesh is not ported yet (ROADMAP A "
+                "item 9, with A4)")
         self.device = resolve_device(device)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
@@ -63,15 +63,19 @@ class DMCPredictor:
 
     @classmethod
     def from_checkpoint(cls, path, num_class=51, **kwargs):
-        """Load a torch checkpoint: the port's state_dict or a reference
-        `.pth.tar` ({epoch, arch, state_dict, best_prec1}, DataParallel
-        `module.` prefix stripped).  Keys of modules the forward does not
+        """Load a checkpoint in any of the port's formats
+        (`train.checkpoints.read_model_state`): a torch file (the port's
+        state_dict or a reference `.pth.tar` {epoch, arch, state_dict,
+        best_prec1}, DataParallel `module.` prefix stripped), a JAX package
+        msgpack file, or a step directory of `--ckpt-backend orbax`
+        (its newest committed step).  Keys of modules the forward does not
         use (the reference's `data_bn`, a GAN discriminator) are dropped;
-        a missing key raises.  Msgpack and orbax checkpoints of the JAX
-        package are not read yet."""
-        sd = state_dict_from_checkpoint(
-            torch.load(path, map_location="cpu", weights_only=True))
-        sd = {k: v for k, v in sd.items()
+        a missing key raises.  A JAX orbax directory raises `SystemExit`
+        naming its format."""
+        from dmcnet_tpu_torch.train.checkpoints import read_model_state
+
+        sd = {k: v.float() if v.is_floating_point() else v
+              for k, v in read_model_state(path).items()
               if k.startswith(("base_model.", "gen_flow_model."))}
         return cls(sd, num_class=num_class, **kwargs)
 

@@ -154,16 +154,33 @@ def test_evaluate_cli_matches_jax(corpus, checkpoints, tmp_path,
 
 
 def test_refused_flags_raise(corpus, checkpoints, tmp_path):
+    """`--shard-time` raises naming its ROADMAP item.  `--load-weights`
+    of the JAX package's file and of a step directory of the port's
+    `--ckpt-backend orbax`, which raised before their slice was ported,
+    score exactly as the port's torch file of the same weights."""
+    from dmcnet_tpu_torch.models.i3d import get_symbol
+    from dmcnet_tpu_torch.train.checkpoints import save_checkpoint_dcp
+
     jax_ckpt, port_ckpt = checkpoints
     base = FLAGS + _data_flags(corpus) + ["--device", "cpu"]
-    orbax_dir = tmp_path / "i3d.orbax"
-    os.makedirs(orbax_dir)
-    for extra, item in (
-            (["--load-weights", port_ckpt, "--shard-time", "1"], "A item 9"),
-            (["--load-weights", jax_ckpt], "A item 2"),
-            (["--load-weights", str(orbax_dir)], "A item 2")):
-        with pytest.raises(SystemExit, match=item):
-            port_cli.main(base + extra)
+    with pytest.raises(SystemExit, match="A item 9"):
+        port_cli.main(base + ["--load-weights", port_ckpt, "--shard-time",
+                              "1"])
+    net, _ = get_symbol("I3D", modality="flow+mp4", num_classes=51,
+                        arch_estimator="DenseNetTiny", input_size=64)
+    net.load_state_dict(torch.load(port_ckpt, weights_only=True))
+    orbax_dir = str(tmp_path / "i3d_ep-0001.pth.orbax")
+    save_checkpoint_dcp(net, {"epoch": 1, "top1": 0.0, "stage2": True},
+                        orbax_dir)
+    scores = []
+    for weights in (port_ckpt, jax_ckpt, orbax_dir):
+        out = str(tmp_path / f"scores{len(scores)}")
+        port_cli.main(base + ["--load-weights", weights, "--score-file",
+                              out])
+        with np.load(out + ".npz") as z:
+            scores.append(z["scores"])
+    np.testing.assert_array_equal(scores[1], scores[0])
+    np.testing.assert_array_equal(scores[2], scores[0])
 
 
 @pytest.mark.parametrize("dropped", ["gen_flow_model.", "running_"])

@@ -350,12 +350,14 @@ def test_resume_epoch_across_epoch_thre(runs, corpus, tmp_path, monkeypatch,
 
 def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
     """train_hmdb51 and train_ucf101 set the dataset default; flags of
-    slices not ported raise naming their ROADMAP item; the TPU workarounds
+    slices not ported raise naming their ROADMAP item, and the directory
+    checkpoint backend, ported, reaches the loop; the TPU workarounds
     parse and say they change nothing; a missing --pretrained_3d raises;
     without CUDA the default device raises."""
     got = {}
     monkeypatch.setattr(train_i3d, "train", lambda args, *a, **kw: got.update(
-        dataset=args.dataset) or type("R", (), {"best_top1": 1.0})())
+        dataset=args.dataset, backend=args.ckpt_backend)
+        or type("R", (), {"best_top1": 1.0})())
     monkeypatch.setattr(train_i3d, "creat", lambda *a, **kw: (None, None))
     base = FLAGS[2:] + _data_flags(corpus) + ["--device", "cpu"]
     train_ucf101.main(base)
@@ -373,10 +375,11 @@ def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
     for extra, item in ((["--tp", "2"], "A item 9"),
                         (["--fsdp", "1"], "A item 9"),
                         (["--gpus", "0,1"], "A item 9"),
-                        (["--dist-coordinator", "h:1"], "A item 9"),
-                        (["--ckpt-backend", "orbax"], "A item 2")):
+                        (["--dist-coordinator", "h:1"], "A item 9")):
         with pytest.raises(SystemExit, match=item):
             train_i3d.main(base + extra)
+    train_i3d.main(base + ["--ckpt-backend", "orbax"])  # ported: no refusal
+    assert got["backend"] == "orbax"
     for extra, match in ((["--modality", "rgb"], "flow\\+mp4"),
                          (["--arch-d", ""], "needs a discriminator")):
         with pytest.raises(SystemExit, match=match):

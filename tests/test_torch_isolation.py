@@ -1,4 +1,5 @@
-"""`dmcnet_tpu_torch` imports neither JAX nor anything of the JAX package.
+"""`dmcnet_tpu_torch` imports neither JAX, flax and msgpack nor anything of
+the JAX package.
 
 Runs in a fresh interpreter: the test session itself has imported jax
 (tests/conftest.py)."""
@@ -17,7 +18,8 @@ names = [m.name for m in pkgutil.walk_packages(dmcnet_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "dmcnet_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack",
+                                    "dmcnet_tpu"))
 print(",".join(names))
 print(",".join(bad))
 """
@@ -46,7 +48,12 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.data.image_iterator",
             "dmcnet_tpu_torch.cli.train_i3d",
             "dmcnet_tpu_torch.cli.train_hmdb51",
-            "dmcnet_tpu_torch.cli.train_ucf101"}
+            "dmcnet_tpu_torch.cli.train_ucf101",
+            "dmcnet_tpu_torch.train.jax_checkpoint",
+            "dmcnet_tpu_torch.parallel",
+            "dmcnet_tpu_torch.parallel.multihost",
+            "dmcnet_tpu_torch.parallel.mesh",
+            "dmcnet_tpu_torch.parallel.fsdp"}
 
 
 def test_port_imports_no_jax():
