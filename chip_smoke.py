@@ -36,6 +36,11 @@ Phases:
                  run of the port; chunk time and clips/s; B1's own device
                  time (queued launches), its plain version's time and its
                  bound
+ 5b. mesh        DMCPredictor(mesh=[every visible card]) on the same
+                 chunk: B1 launched once per card, u8 outputs bit-equal
+                 and logits within rtol 1e-4, atol 2e-4 of the one-card
+                 predictor's, both chunks' ms; serve --mesh-devices over 4
+                 synthetic videos (the host gather swapped: no decoder)
   6. codec       gop_mv_residual_cuda on 256x320, T=12 GOPs equal to the
                  plain codec.accumulate.gop_mv_residual on the card and to
                  the golden load_like_coviar_numpy; the cell-16, cell-8 and
@@ -123,7 +128,25 @@ Phases:
                  cli.test --weights and served by
                  DMCPredictor.from_checkpoint, card against CPU; B1 and B2
                  counted around the phase (0)
- 13. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+ 13. parallel    I3D training across processes, time-sharded I3D
+                 evaluation and tensor parallelism on a world-size-1
+                 group (cpu:gloo,cuda:nccl): plain, data-parallel and
+                 FSDP2 I3D D and G microsteps agree (f32 losses, f64
+                 parameters, 2 clips x 16 frames at 64²), their ms and peak
+                 memory at examples/i3d/train.sh's microbatch (3 clips x
+                 64 frames at 224²); the cli.train_i3d loop with
+                 --ckpt-backend orbax-async resumed by --auto-resume; the
+                 time-sharded forward of a 250-frame clip at 224² against
+                 the unsharded one, ms and peak memory of both; a
+                 tensor-parallel dmcnet step on a 1 x 1 mesh against the
+                 plain step (f32 loss, f64 parameters), both steps' ms and
+                 peak memory, a cli.train --tp 1 step; then 2 gloo
+                 processes on the one card: the time-sharded forward over
+                 125 + 125 frames (halos crossing through the host)
+                 against the unsharded logits, and a 1 x 2
+                 tensor-parallel dmcnet step in float64 against the plain
+                 step; B1 and B2 counted around the phase (0)
+ 14. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
@@ -135,6 +158,7 @@ minutes on an H100.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -163,6 +187,8 @@ SIZE, NUM_CLASS = 224, 51
 # Card vs CPU logits: float32 with TF32 off, but cuDNN and the CPU sum the
 # 20 convolutions in different orders (and may pick Winograd/FFT forms).
 LOGIT_RTOL = LOGIT_ATOL = 1e-3
+# Serving over several cards against one (tests/test_torch_serving.py's).
+SERVE_RTOL, SERVE_ATOL = 1e-4, 2e-4
 # The HMDB-51 recipe's data-layer width (examples/hmdb51_gen_flow/run.sh).
 BATCH, SEGMENTS, MINMAX_BOUND = 40, 3, 20
 # Card vs CPU crops after normalization: float32, TF32 off; the resampling
@@ -1919,6 +1945,549 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
             "eval_cpu_s": t_cpu, "phase_s": phase_s}
 
 
+def mesh_phase(torch, bt, pred, rows, outputs, cards, smi, workdir):
+    """5b. Serving over every visible card (`DMCPredictor(mesh=...)`, a
+    replica on each): the main path's 64-GOP chunk split over the cards,
+    each share back-traced by B1 on its card, every share launched before
+    any is read; its u8 outputs bit-equal to the one-card predictor's and
+    its logits within the serving tolerance; the chunk's ms beside the
+    one-card chunk's; `serve --mesh-devices 1` once over synthetic videos.
+    Returns the numbers and B1's launches on the two mesh paths."""
+    import contextlib
+    import io
+    import os
+
+    from dmcnet_tpu_torch.cli import serve as serve_cli
+    from dmcnet_tpu_torch.serving import DMCPredictor
+
+    phase("mesh")
+    count = len(cards)
+    mesh_pred = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
+                             arch="resnet18", arch_estimator="DenseNetTiny",
+                             gen_flow_or_delta=1, mv_minmaxnorm=1,
+                             input_size=SIZE, mesh=cards)
+    logits, mv_u8, res_u8 = (o.cpu().numpy() for o in outputs)
+    bt.backtrace_warp_batch.launches = 0
+    parts = mesh_pred._launch(rows, G, T, H, W, CELL, PICKS)
+    m_logits, m_mv, m_res = mesh_pred.gather_outputs(parts)
+    launches = bt.backtrace_warp_batch.launches
+    shares = mesh_pred._shares(G)
+    print(f"  mesh over {cards}: shares of the {G}-GOP chunk "
+          f"{[b - a for _, a, b in shares]}; backtrace_warp_batch launches "
+          f"= {launches}")
+    check(launches == len(shares), "the mesh path did not launch B1 once "
+          "per card")
+    check(np.array_equal(m_mv, mv_u8) and np.array_equal(m_res, res_u8),
+          "mesh u8 outputs != the one-card predictor's")
+    err = float(np.abs(m_logits - logits).max())
+    check(np.allclose(m_logits, logits, rtol=SERVE_RTOL, atol=SERVE_ATOL),
+          f"mesh logits != the one-card predictor's ({err})")
+    print(f"  mv_u8 and res_u8 equal the one-card chunk's; logits max "
+          f"|diff| {err:.3g} (rtol {SERVE_RTOL}, atol {SERVE_ATOL})")
+
+    def chunk(p):
+        return [part[0].cpu() for part in p._launch(rows, G, T, H, W, CELL,
+                                                    PICKS)]
+
+    times = {"one_card_ms": host_ms(lambda: chunk(pred), 10, torch),
+             "mesh_ms": host_ms(lambda: chunk(mesh_pred), 10, torch)}
+    print(f"  chunk ({G} GOPs, {G * PICKS} clips; GOP rows packed, to the "
+          f"card(s), logits back; host clock, median of 10, fp32) on {smi}: "
+          f"one card {times['one_card_ms']:.3f} ms, mesh of {count} "
+          f"{times['mesh_ms']:.3f} ms")
+
+    # serve --mesh-devices 1 over 4 synthetic videos of 8 GOPs each: the
+    # host gather is the one step swapped (no decoder on this machine)
+    def gather(self, path, frames_per_gop, segments=None):
+        v = int(os.path.basename(path).split(".")[0])
+        sel = rows[8 * v:8 * (v + 1)]
+        return ([(cm, c) for cm, c, *_ in sel],
+                [(iframe, fp, T) for _, _, iframe, fp, _ in sel],
+                [pk for *_, pk in sel], [len(pk) for *_, pk in sel],
+                [np.ones(len(pk), np.float32) for *_, pk in sel], H, W)
+
+    weights = os.path.join(workdir, "serve.pth")
+    torch.save(pred.model.state_dict(), weights)
+    paths = [f"synthetic/{v}.avi" for v in range(4)]
+    real = DMCPredictor._gather_video_device
+    DMCPredictor._gather_video_device = gather
+    try:
+        bt.backtrace_warp_batch.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            scores = serve_cli.main([
+                "--weights", weights, "--num-class", str(NUM_CLASS),
+                "--input_size", str(SIZE), "--mesh-devices", str(count),
+                "--backend", "device", "--chunk-gops", str(G), "--device",
+                torch.device(cards[0]).type] + paths)
+        serve_launches = bt.backtrace_warp_batch.launches
+        want = pred.predict_videos(paths, backend="device", chunk_gops=G)
+    finally:
+        DMCPredictor._gather_video_device = real
+    check(serve_launches >= 1, "serve --mesh-devices did not launch B1")
+    for s, w in zip(scores, want):
+        check(s.shape == (NUM_CLASS,) and np.isfinite(s).all()
+              and np.allclose(s, w, rtol=SERVE_RTOL, atol=SERVE_ATOL),
+              "serve --mesh-devices scores != the one-card predictor's")
+    print(f"  serve --mesh-devices {count} over 4 synthetic videos x 8 GOPs: "
+          f"B1 launches {serve_launches}; scores equal the one-card "
+          f"predictor's within rtol {SERVE_RTOL}, atol {SERVE_ATOL}")
+    return {"times": times, "launches": launches,
+            "serve_launches": serve_launches}
+
+
+def _gloo_pair_worker(rank, port, workdir, device="cuda"):
+    """One of 2 gloo ranks on the one card: the time-sharded I3D forward on
+    its half of the clip, and a tensor-parallel (1 x 2) dmcnet step in
+    float64; writes rank<r>.pt to `workdir`."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+    from dmcnet_tpu_torch.models.i3d import get_symbol
+    from dmcnet_tpu_torch.parallel import mesh as pmesh
+    from dmcnet_tpu_torch.parallel import tensor, temporal
+    from dmcnet_tpu_torch.train import engine
+    from dmcnet_tpu_torch.train import optimizers as topt
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    out = {}
+    try:
+        shared = torch.load(os.path.join(workdir, "pair_in.pt"),
+                            weights_only=True)
+        net = get_symbol("I3D", modality="flow+mp4", num_classes=NUM_CLASS,
+                         arch_estimator="DenseNetTiny", input_size=SIZE)[0]
+        net.load_state_dict(shared["i3d"])
+        net = net.to(dev).eval()
+        frames = torch.load(os.path.join(workdir, f"frames{rank}.pt"),
+                            weights_only=True).to(dev)
+        shard = temporal.TimeShard()
+        ranges = temporal.split_frames(I3D_T, 2)
+        fr = temporal.Frames(frames, ranges)
+        torch.cuda.reset_peak_memory_stats()
+        logits, _ = temporal.time_sharded_forward(net, shard, fr)
+        out["ms"] = median_ms(
+            lambda: temporal.time_sharded_forward(net, shard, fr), 3, torch)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["logits"] = logits.cpu()
+        out["max_halo"] = shard.max_halo
+        del net, frames, fr
+
+        args = build_parser().parse_args(TRAIN_RECIPE)
+        model = train_cli.build_model(args, NUM_CLASS, SIZE).to(
+            dev, torch.float64)
+        mesh2 = tensor.make_mesh_2d(1, 2, dev.type)
+        names = tensor.shard_model_tp(model, mesh2)
+        pmesh.use_global_batchnorm(model, mesh2["data"].get_group())
+        opts = topt.make_optimizers(model, args.lr_cls_mult,
+                                    args.lr_mse_mult)
+        topt.adjust_learning_rate(opts, args.lr, args.weight_decay)
+        for opt in opts:
+            for group in opt.param_groups:
+                group["foreach"] = False
+        pmesh.sync_gradients(opts, mesh2["data"].get_group())
+        batch = {k: v.to(dev) for k, v in shared["batch"].items()}
+        m = engine.make_train_step(
+            model, *opts, num_segments=SEGMENTS, lr_cls_w=args.lr_cls,
+            lr_mse_w=args.lr_mse, loss_mse=args.loss_mse)(batch, True)
+        out["tp_loss"] = float(m["loss"])
+        out["tp_names"] = names
+        out["tp_state"] = {k: (v.to_local() if hasattr(v, "to_local")
+                               else v).detach().cpu()
+                           for k, v in model.state_dict().items()}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+
+
+def parallel_phase(torch, bt, dev, gops, smi, workdir):
+    """14. I3D training across processes, time-sharded I3D evaluation and
+    tensor parallelism, on a world-size-1 process group
+    (cpu:gloo,cuda:nccl), and 2 gloo ranks on the one card for the halo
+    exchange and the sharded layers.  Returns the numbers for the summary
+    line."""
+    import contextlib
+    import io
+    import os
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli import train_i3d
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+    from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
+    from dmcnet_tpu_torch.data.video_iter import (
+        I3DBatchAssembler,
+        i3d_augment_batch,
+    )
+    from dmcnet_tpu_torch.models.i3d import get_symbol
+    from dmcnet_tpu_torch.ops.backtrace import gop_mv_residual_cuda
+    from dmcnet_tpu_torch.parallel import fsdp, multihost, temporal, tensor
+    from dmcnet_tpu_torch.parallel import mesh as pmesh
+    from dmcnet_tpu_torch.train import checkpoints as tckpt
+    from dmcnet_tpu_torch.train import engine
+    from dmcnet_tpu_torch.train import optimizers as topt
+    from dmcnet_tpu_torch.train.engine_i3d import make_i3d_steps
+    from dmcnet_tpu_torch.train.optimizers import make_i3d_optimizers
+
+    phase("parallel")
+    t_phase = time.perf_counter()
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = {}
+    args = train_i3d.autofill(train_i3d.build_parser().parse_args(
+        I3D_TRAIN_FLAGS + ["--model-dir", workdir, "--task-name", "par"]))
+    lrs = (args.lr_base, 0.0, args.lr_d, train_i3d.WEIGHT_DECAY)
+    size, t = I3D_CHECK_SIZE, I3D_CHECK_T
+    check_ds = synthetic_clip_dataset(pool, 2, t, dev, cache)
+    asm = I3DBatchAssembler(check_ds, input_size=size, is_train=True, seed=0)
+    check_micro = i3d_augment_batch(asm.batch([0, 1]),
+                                    ds_factor=args.ds_factor,
+                                    input_size=size, device=dev)
+    full_ds = synthetic_clip_dataset(pool, I3D_TRAIN_B, I3D_TRAIN_T, dev,
+                                     cache)
+    full_micro = i3d_augment_batch(
+        I3DBatchAssembler(full_ds, input_size=SIZE, is_train=True, seed=0)
+        .batch(range(I3D_TRAIN_B)), ds_factor=args.ds_factor,
+        input_size=SIZE, device=dev)
+    clip_ds = synthetic_clip_dataset(pool, 1, I3D_T, dev, cache)
+    raw = I3DBatchAssembler(clip_ds, input_size=SIZE, is_train=False) \
+        .batch([0])
+    eval_b = i3d_augment_batch(raw, ds_factor=16, input_size=SIZE,
+                               device=dev)
+    clip = torch.cat([eval_b["mv"], eval_b["residual"]], dim=1)
+    del eval_b
+    loop_train = synthetic_clip_dataset(
+        pool, 2 * I3D_TRAIN_B * I3D_LOOP_ITER, I3D_TRAIN_T, dev, cache)
+    loop_val = synthetic_clip_dataset(pool, I3D_TRAIN_B, I3D_TRAIN_T, dev,
+                                      cache)
+    for ds in (loop_train, loop_val):   # GOPs encoded before the counts
+        for i in range(len(ds)):
+            ds[i]
+    # the dmcnet batches, and the GOPs of the tp loop's synthetic datasets
+    # accumulated by B2 (the recipe's datasets accumulate on the host)
+    targs = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS)
+    tp_pool, batch, _ = _recipe_setup(torch, dev, gops, targs)
+    tp_cache = {}
+    for k, gop in enumerate(tp_pool):
+        mv, res = gop_mv_residual_cuda(*gop, device=dev)
+        tp_cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
+                       _encode_u8(res.cpu().numpy()))
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        # (a) I3D: plain, data-parallel and FSDP2 D and G microsteps on the
+        # same seeded weights and microbatch
+        def build_i3d(kind, size, dtype=torch.float32):
+            net = he_init(torch, train_i3d.build_model(args, NUM_CLASS,
+                                                       size)[0], 0)
+            net.dropout.p = 0.0
+            _dropout_off(torch, net)
+            net = net.to(dev, dtype)
+            if kind != "plain":
+                pmesh.use_global_batchnorm(net)
+            if kind == "fsdp":
+                fsdp.shard_model(net)
+            opts = make_i3d_optimizers(net, optim=args.optimizer,
+                                       lr_mul=0.5, has_gan=True,
+                                       freeze_base=True)
+            if kind == "fsdp":
+                fsdp.loop_optimizers(opts.values())
+            if kind != "plain":
+                pmesh.sync_gradients(opts.values())
+            return net, make_i3d_steps(net, opts, adv=args.adv)
+
+        # at a small width, then at the recipe's microbatch
+        kinds = ("plain", "dp", "fsdp")
+        widths = ((check_micro, size, f"2 clips x {t} frames at {size}²"),
+                  (full_micro, SIZE, f"{I3D_TRAIN_B} clips x {I3D_TRAIN_T} "
+                   f"frames at {SIZE}²"))
+        for (micro32, width, shape), dtype in itertools.product(
+                widths, (torch.float32, torch.float64)):
+            t_check = time.perf_counter()
+            micro = {k: v.to(dtype) if v.is_floating_point() else v
+                     for k, v in micro32.items()}
+            got = {}
+            for kind in kinds:
+                net, (d_step, g_step) = build_i3d(kind, width, dtype)
+                m = {**{"D " + k: float(v) for k, v in
+                        d_step([micro], *lrs, True).items()},
+                     **{"G " + k: float(v) for k, v in
+                        g_step([micro], *lrs, True).items()}}
+                got[kind] = (m, fsdp.gather_state(net))
+                del net, d_step, g_step
+            del micro
+            want, want_sd = got["plain"]
+            for kind in kinds[1:]:
+                m, sd = got[kind]
+                for k, w in want.items():
+                    check(abs(m[k] - w) <= TRAIN_LOSS_RTOL * abs(w),
+                          f"i3d {kind} {k} ({shape}, {dtype}): {m[k]} != "
+                          f"plain {w}")
+                if dtype == torch.float64:
+                    _state_close(torch, want_sd, sd,
+                                 f"i3d {kind} vs plain ({shape})")
+            print(f"  I3D D + G microstep, {shape}, {str(dtype)[6:]}: "
+                  + ", ".join(f"{kind} D loss {got[kind][0]['D loss']:.7f}"
+                              for kind in kinds)
+                  + f"; agree: every metric (rtol {TRAIN_LOSS_RTOL})" + (
+                      f", parameters and BN statistics (rtol "
+                      f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})"
+                      if dtype == torch.float64 else "")
+                  + f"; {time.perf_counter() - t_check:.1f} s")
+            del got, want_sd
+            torch.cuda.empty_cache()
+
+        # (b) microstep times and peak memory at the recipe's microbatch
+        timing = {}
+        for kind in kinds:
+            net, (d_step, g_step) = build_i3d(kind, SIZE)
+            for name, fn in (("d", d_step), ("g", g_step)):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = median_ms(lambda: fn([full_micro], *lrs, True),
+                               TRAIN_TIMED_STEPS, torch)
+                timing[f"i3d_{kind}_{name}"] = {
+                    "ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()}
+            del net, d_step, g_step
+        print(f"  I3D microstep times on {smi} (medians of "
+              f"{TRAIN_TIMED_STEPS}, CUDA events, fp32, TF32 off, "
+              f"{I3D_TRAIN_B} clips x {I3D_TRAIN_T} frames at {SIZE}²): "
+              + ", ".join(f"{k[4:]} {v['ms']:.3f} ms / "
+                          f"{v['peak_bytes'] / 2**30:.3f} GiB peak"
+                          for k, v in timing.items()))
+
+        # (c) the cli.train_i3d loop with orbax-async, then --auto-resume
+        loop_argv = I3D_TRAIN_FLAGS + I3D_LOOP_FLAGS + [
+            "--model-dir", workdir, "--task-name", "dist", "--ckpt-backend",
+            "orbax-async"]
+        loop_args = train_i3d.autofill(train_i3d.build_parser().parse_args(
+            loop_argv))
+        loop_args.score_dir = os.path.join(workdir, "score")
+        t0 = time.perf_counter()
+        result = train_i3d.train(loop_args, loop_train, loop_val, device=dev,
+                                 input_size=SIZE)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+        directory = result.checkpoint
+        check(tckpt.dcp_checkpoint_committed(directory)
+              and directory.endswith("ep-0002.pth.orbax"),
+              f"the loop's directory {directory}")
+        resume_args = train_i3d.autofill(train_i3d.build_parser().parse_args(
+            loop_argv + ["--end-epoch", "3", "--auto-resume", "1"]))
+        resume_args.score_dir = loop_args.score_dir
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            resumed = train_i3d.train(resume_args, loop_train, loop_val,
+                                      device=dev, input_size=SIZE)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        check("--auto-resume: epoch 2" in out.getvalue()
+              and [e["epoch"] for e in resumed.epochs] == [2],
+              "--auto-resume did not resume the I3D loop at epoch 2")
+        print(f"  cli.train_i3d loop (--iter-size {I3D_LOOP_ITER}, 2 epochs "
+              f"x 2 macro steps, --ckpt-backend orbax-async) {loop_s:.2f} s;"
+              f" --auto-resume from epoch 2 trained epoch 2 in "
+              f"{resume_s:.2f} s (host clock)")
+
+        # (d) the time-sharded I3D forward at T = I3D_T on the world of 1
+        net = he_init(torch, get_symbol(
+            "I3D", modality="flow+mp4", num_classes=NUM_CLASS,
+            arch_estimator="DenseNetTiny", input_size=SIZE)[0], 0)
+        net = net.to(dev).eval()
+        shard = temporal.TimeShard()
+        fr = shard.scatter(clip)
+        with torch.no_grad():
+            want_logits, want_gen = net(clip, "flow+logit")
+        logits, gen = temporal.time_sharded_forward(net, shard, fr)
+        errs = (float((logits - want_logits).abs().max()),
+                float((gen - want_gen).abs().max()))
+        check(torch.allclose(logits, want_logits, rtol=LOGIT_RTOL,
+                             atol=LOGIT_ATOL)
+              and torch.allclose(gen, want_gen, rtol=LOGIT_RTOL,
+                                 atol=LOGIT_ATOL),
+              f"time-sharded forward != the unsharded one {errs}")
+        shard_times = {}
+        for name, fn in (("unsharded", lambda: net(clip, "flow+logit")),
+                         ("sharded", lambda: temporal.time_sharded_forward(
+                             net, shard, fr))):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                ms = median_ms(fn, I3D_TIMED, torch)
+            shard_times[name] = {
+                "ms": ms, "peak_bytes": torch.cuda.max_memory_allocated()}
+        print(f"  time-sharded I3D forward, one {I3D_T}-frame clip at "
+              f"{SIZE}², world of 1: logits / gen_flow max |diff| "
+              f"{errs[0]:.3g} / {errs[1]:.3g} from the unsharded forward "
+              f"(rtol = atol = {LOGIT_RTOL}); on {smi} (medians of "
+              f"{I3D_TIMED}, CUDA events, fp32): " + ", ".join(
+                  f"{k} {v['ms']:.3f} ms / {v['peak_bytes'] / 2**30:.3f} "
+                  "GiB peak" for k, v in shard_times.items()))
+
+        # (e) tensor parallelism on a 1 x 1 mesh: every large layer through
+        # the sharded forward (f, its channels, g) and DTensor weights
+        mesh11 = tensor.make_mesh_2d(1, 1, torch.device(dev).type)
+
+        def build_tp(kind, dtype=torch.float32):
+            model = train_cli.build_model(targs, NUM_CLASS, SIZE).to(
+                dev, dtype)
+            names = []
+            if kind == "tp":
+                names = tensor.shard_model_tp(model, mesh11)
+                pmesh.use_global_batchnorm(model,
+                                           mesh11["data"].get_group())
+            opts = topt.make_optimizers(model, targs.lr_cls_mult,
+                                        targs.lr_mse_mult)
+            topt.adjust_learning_rate(opts, targs.lr, targs.weight_decay)
+            if kind == "tp":
+                fsdp.loop_optimizers(opts)
+                pmesh.sync_gradients(opts, mesh11["data"].get_group())
+            return model, engine.make_train_step(
+                model, *opts, num_segments=SEGMENTS, lr_cls_w=targs.lr_cls,
+                lr_mse_w=targs.lr_mse, loss_mse=targs.loss_mse), names
+
+        n = CHECK_VIDEOS
+        for dtype in (torch.float32, torch.float64):
+            small = {k: v[:n].to(dtype) if v.is_floating_point() else v[:n]
+                     for k, v in batch.items()}
+            got = {}
+            for kind in ("plain", "tp"):
+                model, step, names = build_tp(kind, dtype)
+                got[kind] = (float(step(small, True)["loss"]),
+                             fsdp.gather_state(model))
+            check(abs(got["tp"][0] - got["plain"][0])
+                  <= TRAIN_LOSS_RTOL * abs(got["plain"][0]),
+                  f"tp loss {got['tp'][0]} != plain {got['plain'][0]}")
+            if dtype == torch.float64:
+                _state_close(torch, got["plain"][1], got["tp"][1],
+                             "tp vs plain")
+            print(f"  tensor-parallel dmcnet step (1 x 1 mesh, {len(names)} "
+                  f"layers sharded), {n} videos x {SEGMENTS} at {SIZE}, "
+                  f"{str(dtype)[6:]}: loss plain {got['plain'][0]:.7f} / tp "
+                  f"{got['tp'][0]:.7f}" + (
+                      f"; parameters and BN statistics agree (rtol "
+                      f"{TRAIN_PARAM_RTOL}, atol {TRAIN_PARAM_ATOL})"
+                      if dtype == torch.float64 else ""))
+        pair_batch = {k: v[:n].double().cpu() if v.is_floating_point()
+                      else v[:n].cpu() for k, v in batch.items()}
+        plain64, step64, _ = build_tp("plain", torch.float64)
+        plain_loss = float(step64({k: v.to(dev) for k, v in
+                                   pair_batch.items()}, True)["loss"])
+        plain_state = {k: v.cpu() for k, v in plain64.state_dict().items()}
+        del plain64, step64, got
+        tp_times = {}
+        for kind in ("plain", "tp"):
+            model, step, _ = build_tp(kind)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            tp_times[kind] = {
+                "ms": median_ms(lambda: step(batch, True),
+                                TRAIN_TIMED_STEPS, torch),
+                "peak_bytes": torch.cuda.max_memory_allocated()}
+            del model, step
+        print(f"  dmcnet step times on {smi} (medians of "
+              f"{TRAIN_TIMED_STEPS}, CUDA events, fp32, {BATCH} x "
+              f"{SEGMENTS} clips): " + ", ".join(
+                  f"{k} {v['ms']:.3f} ms / {v['peak_bytes'] / 2**30:.3f} GiB"
+                  " peak" for k, v in tp_times.items()))
+        tp_args = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS + [
+            "--tp", "1", "--epochs", "1", "--model-prefix",
+            os.path.join(workdir, "tp1")])
+        tp_train = synthetic_dataset(tp_pool, BATCH, True, dev, tp_cache,
+                                     flow_from_mv=True)
+        tp_val = synthetic_dataset(tp_pool, BATCH, False, dev, tp_cache,
+                                   flow_from_mv=True)
+        with contextlib.redirect_stdout(io.StringIO()):
+            tp_result = train_cli.train(tp_args, tp_train, tp_val,
+                                        device=dev, input_size=SIZE)
+        check(len(tp_result.epochs) == 1
+              and len(tp_result.epochs[0]["batch_times"]) == 1,
+              "cli.train --tp 1 did not take its step")
+        print("  cli.train --tp 1: one step of the recipe's batch, evaluated "
+              f"(Prec@1 {tp_result.best_prec1:.3f})")
+    finally:
+        tckpt.wait_for_checkpoints()
+        multihost.shutdown()
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+
+    # (f) 2 gloo ranks on the one card (NCCL refuses two ranks on one
+    # card; gloo carries the collectives through the host): the halo
+    # exchange of the time-sharded forward, and a 1 x 2 tensor-parallel
+    # dmcnet step in float64
+    ranges = temporal.split_frames(I3D_T, 2)
+    torch.save({"i3d": {k: v.cpu() for k, v in net.state_dict().items()},
+                "batch": pair_batch}, os.path.join(workdir, "pair_in.pt"))
+    for r, (a, b) in enumerate(ranges):
+        torch.save(clip[:, :, a:b].cpu().clone(),
+                   os.path.join(workdir, f"frames{r}.pt"))
+    want_logits = want_logits.cpu()
+    del net, clip, fr, logits, gen, want_gen
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.start_processes(_gloo_pair_worker, args=(
+        _free_port(), workdir, torch.device(dev).type), nprocs=2,
+        start_method="spawn", join=True)
+    pair_s = time.perf_counter() - t0
+    pair = [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=True) for r in range(2)]
+    for r, res in enumerate(pair):
+        check(torch.allclose(res["logits"], want_logits, rtol=LOGIT_RTOL,
+                             atol=LOGIT_ATOL),
+              f"2-rank time-sharded logits (rank {r}) != unsharded")
+        check(0 < res["max_halo"] <= 7, f"rank {r} received "
+              f"{res['max_halo']} frames in one exchange")
+        check(abs(res["tp_loss"] - plain_loss) <= 1e-9 * abs(plain_loss),
+              f"2-rank tp loss {res['tp_loss']} != plain {plain_loss}")
+        for k, v in res["tp_state"].items():
+            w = plain_state[k]
+            if v.shape != w.shape:      # this rank's output channels
+                w = w.chunk(2)[r]
+            if not k.endswith("num_batches_tracked"):
+                check(torch.allclose(v, w, rtol=TRAIN_PARAM_RTOL,
+                                     atol=TRAIN_PARAM_ATOL),
+                      f"2-rank tp {k} (rank {r}) != plain")
+    print(f"  2 gloo ranks on the card ({pair_s:.1f} s with start-up): "
+          f"time-sharded forward over {ranges}, logits max |diff| "
+          + " / ".join(f"{float((p['logits'] - want_logits).abs().max()):.3g}"
+                       for p in pair)
+          + f" from the unsharded, halos of at most "
+          f"{max(p['max_halo'] for p in pair)} frames; "
+          + ", ".join(f"rank {r} {p['ms']:.3f} ms / "
+                      f"{p['peak_bytes'] / 2**30:.3f} GiB peak"
+                      for r, p in enumerate(pair))
+          + f" (median of 3, CUDA events, fp32); a 1 x 2 tensor-parallel "
+          f"dmcnet step in float64 ({len(pair[0]['tp_names'])} layers, "
+          "each rank half their output channels): loss and every "
+          "parameter and BN statistic as the plain step")
+    print(f"  launches around the phase: {launches} (no TPU kernel lies on "
+          "these paths)")
+    check(not any(launches.values()), "the parallel phase launched B1/B2")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  parallel phase {phase_s:.1f} s")
+    return {"i3d_timing": timing, "i3d_loop_s": loop_s,
+            "i3d_resume_s": resume_s, "shard_time": shard_times,
+            "tp_timing": tp_times, "pair": [
+                {k: p[k] for k in ("ms", "peak_bytes", "max_halo")}
+                for p in pair], "pair_s": pair_s, "launches": launches,
+            "phase_s": phase_s}
+
+
 def main():
     import torch
 
@@ -2161,6 +2730,9 @@ def main():
           f"{bytes_ms:.4f} ms; int32 ops {n_ops / 1e9:.2f} G -> "
           f"{ops_ms:.4f} ms); {bound_ms / kernel_ms * 100:.1f}% of bound")
 
+    mesh = in_workdir(mesh_phase, torch, bt, pred, rows,
+                      (logits, mv_u8, res_u8),
+                      [f"cuda:{i}" for i in range(count)], smi)
     codec_times = codec_phase(torch, bt, dev, gops)
     data = data_phase(torch, bt, dev, gops, pred, rng)
     train = in_workdir(train_phase, torch, bt, dev, gops, smi)
@@ -2168,8 +2740,9 @@ def main():
     i3d = in_workdir(i3d_phase, torch, bt, dev, gops)
     i3d_train = in_workdir(i3d_train_phase, torch, bt, dev, gops, smi)
     dist_numbers = in_workdir(dist_phase, torch, bt, dev, gops, smi)
+    parallel = in_workdir(parallel_phase, torch, bt, dev, gops, smi)
 
-    # 13. videos --------------------------------------------------------------
+    # 14. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -2211,12 +2784,17 @@ def main():
                   "device and host backends disagree")
         print("  device-backend scores agree with the host backend")
 
+    # B1 on the serving paths: the one-card chunk, the mesh chunk and the
+    # serve --mesh-devices command, each counted from 0
+    b1_launches = launches + mesh["launches"] + mesh["serve_launches"]
+    print(f"  B1 launches: main path {launches}, mesh chunk "
+          f"{mesh['launches']}, serve --mesh-devices {mesh['serve_launches']}")
     kernels = [{
         "name": "backtrace_warp_batch",
         "route": "cuda",
         "source": "dmcnet_tpu_torch/ops/csrc/backtrace_warp.cu",
         "replaces": "dmcnet_tpu/ops/pallas_backtrace.py:401",
-        "launches": launches,
+        "launches": b1_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2246,7 +2824,8 @@ def main():
                       "codec_ms": codec_times,
                       "data_ms": data["times"], "train": train,
                       "gan": gan, "i3d": i3d, "i3d_train": i3d_train,
-                      "dist": dist_numbers, "card": smi}))
+                      "dist": dist_numbers, "mesh": mesh,
+                      "parallel": parallel, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

@@ -13,6 +13,7 @@ The port's counterpart of `dmcnet_tpu/cli/serve.py`, flag for flag, plus
   (`predict_videos`);
 - the score dump is bit-compatible with reference `test.py:183-198`, so the
   reference `combine.py` / `run_combine.sh` fuse its output.
+- `--mesh-devices N` serves over the first N cards (`DMCPredictor(mesh=)`).
 
 Inputs are either a reference-format list file (``video _ label`` lines,
 code/dmcnet/dataset.py:116-128) or bare video paths on the command line.
@@ -73,9 +74,11 @@ def build_parser():
                         help='GOPs per device program (predict_videos '
                              'batching quantum)')
     parser.add_argument('--mesh-devices', type=int, default=0,
-                        help='shard GOP batches over this many devices '
-                             '(0 = single device; other values are not '
-                             'ported yet and raise)')
+                        help='serve over the first N cards, a model '
+                             'replica on each, every GOP chunk and host '
+                             'clip batch split over them (0 = --device '
+                             'alone); N above the visible cards raises; '
+                             'with --device cpu, N CPU replicas')
     parser.add_argument('--no-pack', action='store_true',
                         help='accepted for compatibility: the port runs '
                              'the unpacked float32 forward only')
@@ -174,6 +177,20 @@ def parse_inputs(args):
     return list(args.videos), None, names
 
 
+def mesh_devices(n, device):
+    """The first `n` cards (`device` cuda), or `n` CPU replicas (`device`
+    cpu); more cards than are visible raises, with no fallback."""
+    import torch
+
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > count:
+        raise SystemExit(f"--mesh-devices {n}: only {count} CUDA devices "
+                         "are visible")
+    return [f"cuda:{i}" for i in range(n)]
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from dmcnet_tpu_torch.serving import DMCPredictor
@@ -183,17 +200,16 @@ def main(argv=None):
     if not args.stdin:
         paths, labels, names = parse_inputs(args)
 
+    where = {"device": args.device}
     if args.mesh_devices:
-        raise NotImplementedError(
-            '--mesh-devices: serving over several cards is not ported yet '
-            '(ROADMAP A item 9, with A4)')
+        where = {"mesh": mesh_devices(args.mesh_devices, args.device)}
 
     predictor = DMCPredictor.from_checkpoint(
         args.weights, num_class=num_class, arch=args.arch,
         arch_estimator=args.arch_estimator,
         gen_flow_or_delta=args.gen_flow_or_delta,
         mv_minmaxnorm=args.mv_minmaxnorm, input_size=args.input_size,
-        device=args.device)
+        **where)
 
     if args.warmup:
         def parse_geom(g):

@@ -14,8 +14,9 @@ backbone on the modality input (`models.tsn.PlainTSN`).  `--arch_d` scores
 a GAN checkpoint with its discriminator, built for `--input_size`, and
 prints the G adversarial accuracy: the share of generated cues the
 discriminator rates real, over every video's segments x crops (reference
-dmcnet_GAN test.py:158,184-192).  `--viz` and `--pp` belong to slices not
-ported yet and raise.
+dmcnet_GAN test.py:158,184-192).  `--gpus` with several ids scores on
+the first, as the JAX command ignores the flag.  `--viz` and `--pp` belong
+to slices not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -79,8 +80,9 @@ def build_parser():
                         help='kept for flag parity: videos are assembled '
                              'in order on the calling thread')
     parser.add_argument('--gpus', nargs='+', type=int, default=None,
-                        help='card ids; one id selects cuda:<id>, several '
-                             'raise (ROADMAP A item 9)')
+                        help='card ids; the first selects cuda:<id>, the '
+                             'others are accepted and ignored, as the JAX '
+                             'command parses and never reads them')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device to score on (cuda, cuda:N, cpu)')
     parser.add_argument('--gop', type=int, default=12)
@@ -115,8 +117,6 @@ def main(argv=None):
     refuse_unported([
         (args.viz, "--viz", "A item 10 (utils/viz)"),
         (args.pp > 1, "--pp", "A item 9 (parallel layer)"),
-        (args.gpus is not None and len(args.gpus) > 1,
-         "--gpus with several ids", "A item 9 (parallel layer)"),
     ])
     if args.plain and (args.att or args.arch_d):
         raise SystemExit("--plain scores the bare TSN backbone (no "

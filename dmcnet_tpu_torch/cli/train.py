@@ -37,26 +37,30 @@ several ids starts one process per id on this host.  Each rank assembles
 its rows of the global batch, BatchNorm normalizes over the global batch
 and the gradients are averaged, so a step is the single-process step on
 the global batch; `--fsdp 1` shards parameters and moments with FSDP2 and
-then, across processes, needs a directory backend.  Rank 0 alone prints,
-logs and writes torch files; every rank writes its shards of a directory.
-`--fsdp` on one process has nothing to shard and says so.  `--tp` and
-`--profile-dir` raise `SystemExit` naming their ROADMAP item.
+then, across processes, needs a directory backend.  `--tp N` shards every
+large convolution and linear layer's output channels over N adjacent
+ranks (`parallel/tensor.py`, a (processes / N, N) mesh: the batch splits
+over the data rows), with `--fsdp` also FSDP2 over the data dim; it writes
+and resumes step directories only.  Rank 0 alone prints, logs and writes
+torch files; every rank writes its shards of a directory.  `--fsdp` on one
+process has nothing to shard and says so.  `--profile-dir` raises
+`SystemExit` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-import socket
 import sys
 import time
 
 import torch
-import torch.multiprocessing as mp
 
 from dmcnet_tpu_torch.cli.common import (
+    check_parallel_flags,
     device_for,
     num_classes_for,
+    place,
     refuse_unported,
 )
 from dmcnet_tpu_torch.cli.train_options import build_parser
@@ -74,6 +78,7 @@ from dmcnet_tpu_torch.parallel.multihost import (
     local_shard_indices,
     process_seed,
     shutdown,
+    spawn_ranks,
     world,
 )
 from dmcnet_tpu_torch.train.checkpoints import (
@@ -119,8 +124,9 @@ def build_model(args, num_class, input_size=224):
 def make_datasets(args):
     """The train and validation `CoviarDataset`s of `args`.  A training
     dataset draws its videos from its seed and a counter, whatever the
-    index, so each rank seeds its own (`process_seed`): with one seed every
-    rank would draw the same videos."""
+    index, so each data row seeds its own (`process_seed`): with one seed
+    every rank would draw the same videos, and the `--tp` ranks of a row
+    must draw the same."""
     common = dict(
         data_root=args.data_root, flow_root=args.flow_root,
         representation=args.representation, num_segments=args.num_segments,
@@ -131,7 +137,7 @@ def make_datasets(args):
         new_length=args.new_length, gop_cache_mb=args.gop_cache_mb,
         reader_cache=args.reader_cache)
     return (CoviarDataset(video_list=args.train_list, is_train=True,
-                          seed=process_seed(0), **common),
+                          seed=process_seed(0, args.tp), **common),
             CoviarDataset(video_list=args.test_list, is_train=False,
                           **common))
 
@@ -168,31 +174,6 @@ def _silent(*args, **kwargs):
     pass
 
 
-def _place(model, optimizers_fn, args, parallel):
-    """Across processes: global-batch BN swapped into `model`, FSDP2 with
-    `--fsdp`, and the optimizers (`optimizers_fn()`, built after the
-    sharding) averaging their gradients before each step."""
-    if parallel:
-        from dmcnet_tpu_torch.parallel.mesh import (
-            sync_gradients,
-            use_global_batchnorm,
-        )
-
-        use_global_batchnorm(model)
-        if args.fsdp:
-            from dmcnet_tpu_torch.parallel.fsdp import shard_model
-
-            shard_model(model)
-    optimizers = optimizers_fn()
-    if parallel:
-        if args.fsdp:
-            from dmcnet_tpu_torch.parallel.fsdp import loop_optimizers
-
-            loop_optimizers(optimizers)
-        sync_gradients(optimizers)
-    return optimizers
-
-
 def train(args, train_ds, val_ds, *, device, input_size=224):
     """The epoch loop of reference main() over `train_ds` / `val_ds`
     (CoviarDataset contract) on `device`; the dmcnet_GAN loop when `args`
@@ -211,10 +192,11 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
             "layout (packing is an exact reparameterization of it)")
     if args.fsdp and not parallel:
         say("--fsdp 1 on one process: nothing to shard")
+    tp = max(args.tp or 1, 1)
     scale_size = input_size * 256 // 224
     train_asm = BatchAssembler(train_ds, input_size=input_size,
                                scale_size=scale_size,
-                               seed=process_seed(0))
+                               seed=process_seed(0, tp))
     val_asm = BatchAssembler(val_ds, input_size=input_size,
                              scale_size=scale_size, test_crops=1)
     aug = dict(representation=args.representation,
@@ -235,9 +217,14 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
         skipped, missing = load_reference_weights(model, args.weights)
         say(f"loaded --weights {args.weights} (skipped {len(skipped)}, "
             f"missing {len(missing)})")
-    optimizers = _place(model, lambda: make_optimizers(
+    placement = place(model, fsdp=args.fsdp, tp=tp)
+    if placement.tp > 1:
+        say(f"tensor-parallel {world_size // tp}x{tp} mesh (batch "
+            f"{args.batch_size} -> "
+            f"{args.batch_size * tp // world_size}/data row)")
+    optimizers = placement.prepare(make_optimizers(
         model, args.lr_cls_mult, args.lr_mse_mult,
-        args.lr_d_mult if gan else None), args, parallel)
+        args.lr_d_mult if gan else None))
     directory = args.ckpt_backend.startswith("orbax")
     if args.auto_resume and not args.resume:
         cand = checkpoint_name(args.model_prefix, args.representation)
@@ -252,9 +239,11 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
             args.resume = cand
             say(f"--auto-resume: found {cand}")
     if args.resume:
-        if parallel and args.fsdp and checkpoint_format(args.resume) != "dcp":
-            raise SystemExit("--fsdp across processes resumes from a "
-                             "--ckpt-backend orbax directory")
+        if parallel and (args.fsdp or tp > 1) and \
+                checkpoint_format(args.resume) != "dcp":
+            raise SystemExit(f"{'--fsdp' if args.fsdp else '--tp'} across "
+                             "processes resumes from a --ckpt-backend orbax "
+                             "directory")
         meta = load_checkpoint(args.resume, model, optimizers)
         start_epoch = meta["epoch"]
         best_prec1 = meta["best_prec1"] or 0.0
@@ -273,7 +262,7 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     metric_keys = _METRICS + (_GAN_METRICS if gan else ())
 
     bs = args.batch_size
-    rows = list(local_shard_indices(bs))
+    rows = list(local_shard_indices(bs, tp))
     batches_per_epoch = max(1, len(train_ds) // bs)
     result = TrainResult(best_prec1, model, optimizers, [])
     mlog = MetricsLogger(args.metrics_jsonl if rank == 0 else None)
@@ -344,7 +333,7 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                                   "batch_times": batch_times})
 
             if epoch % args.eval_freq == 0 or epoch == args.epochs - 1:
-                prec1 = validate(val_asm, eval_step, bs, aug)
+                prec1 = validate(val_asm, eval_step, bs, aug, tp)
                 mlog.log("eval", epoch=epoch, prec1=prec1)
                 is_best = prec1 > best_prec1
                 best_prec1 = max(prec1, best_prec1)
@@ -391,7 +380,8 @@ def _save(args, model, optimizers, meta, is_best, rank, times):
         times["checkpoint_s"] = time.perf_counter() - t0
     if args.save_reference_ckpt:
         state = None
-        if args.fsdp and world()[1] > 1:  # every rank gathers its shards
+        if (args.fsdp or (args.tp or 1) > 1) and world()[1] > 1:
+            # every rank gathers its shards
             from dmcnet_tpu_torch.parallel.fsdp import gather_state
 
             state = gather_state(model)
@@ -402,15 +392,15 @@ def _save(args, model, optimizers, meta, is_best, rank, times):
     return path
 
 
-def validate(val_asm, eval_step, batch_size, aug):
+def validate(val_asm, eval_step, batch_size, aug, tp=1):
     """Reference validate() (train.py:292-369): Prec@1 over the validation
-    set, batch by batch; returns it.  Each rank scores its rows of each
-    batch and the sums are all-reduced, so Prec@1 and the loss are the
-    global ones.  A rank with no row left in the ragged last batch scores
-    the last row and counts it 0 times: FSDP2's forward gathers the
-    shards on every rank."""
+    set, batch by batch; returns it.  Each data row scores its rows of each
+    batch (the `tp` ranks of a row the same ones) and the sums are
+    all-reduced, so Prec@1 and the loss are the global ones.  A rank with
+    no row left in the ragged last batch scores the last row and counts it
+    0 times: FSDP2's and the sharded layers' forwards need every rank."""
     n = len(val_asm.ds)
-    rows = list(local_shard_indices(batch_size))
+    rows = list(local_shard_indices(batch_size, tp))
     sums = [0.0, 0.0, 0.0]       # top1 x rows, loss x rows, rows
     for start in range(0, n, batch_size):
         stop = min(start + batch_size, n)
@@ -434,24 +424,17 @@ def main(argv=None, gan=False, input_size=224):
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser(gan=gan).parse_args(argv)
     refuse_unported([
-        ((args.tp or 0) > 1, "--tp > 1", "A item 9 (parallel layer)"),
         (args.profile_dir is not None, "--profile-dir",
          "A item 10 (utils/profiling)"),
     ])
     spawn = args.gpus and len(args.gpus) > 1 and \
         args.dist_num_processes is None
     n_proc = len(args.gpus) if spawn else (args.dist_num_processes or 1)
-    if n_proc > 1:
-        if args.fsdp and not args.ckpt_backend.startswith("orbax"):
-            raise SystemExit(
-                "--fsdp across processes requires --ckpt-backend orbax (a "
-                "torch file holds the full state, which no process holds)")
-        if args.batch_size % n_proc:
-            raise SystemExit(
-                f"--batch-size {args.batch_size} must be divisible by the "
-                f"number of processes ({n_proc})")
+    check_parallel_flags(n_proc, args.batch_size, args.tp, args.fsdp,
+                         args.ckpt_backend.startswith("orbax"))
     if spawn:
-        return spawn_ranks(argv, args.gpus, gan, input_size)
+        return spawn_ranks(main, argv, args.gpus, gan=gan,
+                           input_size=input_size)
     device = device_for(args)
     if device.type == "cuda" and args.dist_num_processes:
         if not args.gpus:  # rank r drives card r of its host
@@ -472,49 +455,6 @@ def main(argv=None, gan=False, input_size=224):
     finally:
         shutdown()
 
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank, argv, gpus, gan, input_size, port, results):
-    argv = list(argv) + [
-        "--gpus", str(gpus[rank]), "--dist-coordinator",
-        f"localhost:{port}", "--dist-num-processes", str(len(gpus)),
-        "--dist-process-id", str(rank)]
-    out = main(argv, gan=gan, input_size=input_size)
-    if rank == 0:
-        results.put(out)
-
-
-def spawn_ranks(argv, gpus, gan=False, input_size=224):
-    """`--gpus` with several ids: one process per id on this host, rank r
-    on card `gpus[r]` (with `--device cpu`, gloo processes on the CPU),
-    joined at a free local port.  Returns rank 0's result; a rank that
-    fails raises."""
-    ctx = mp.get_context("spawn")
-    results = ctx.SimpleQueue()
-    port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(
-        r, argv, gpus, gan, input_size, port, results))
-        for r in range(len(gpus))]
-    for p in procs:
-        p.start()
-    failed = []
-    while any(p.is_alive() for p in procs) and not failed:
-        procs[0].join(timeout=0.5)
-        failed = [r for r, p in enumerate(procs) if p.exitcode not in
-                  (None, 0)]
-    for p in procs:  # a failed rank leaves the others at a collective
-        if failed and p.is_alive():
-            p.terminate()
-        p.join()
-    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
-    if failed:
-        raise SystemExit(f"training ranks {failed} of {len(gpus)} failed")
-    return results.get()
 
 
 if __name__ == "__main__":

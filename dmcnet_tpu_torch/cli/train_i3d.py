@@ -1,4 +1,4 @@
-"""DMC-Net I3D training on one card — the port's counterpart of
+"""DMC-Net I3D training — the port's counterpart of
 `dmcnet_tpu/cli/train_i3d.py` (reference code/dmcnet_I3D/train_{hmdb51,
 ucf101}.py and train_model.py), with its flags plus `--device` (default
 `cuda`).  examples/i3d/train.sh on the port:
@@ -41,9 +41,26 @@ Differences from the JAX command:
   * a `--pretrained_3d` or `--new_classifier` file that does not exist
     raises instead of being skipped;
   * the TPU workarounds `--accum-chunk`, `--remat` and `--packed-gen` parse
-    and change nothing (accumulation is sequential here already);
-  * it trains on one process: `--tp`, `--fsdp`, `--dist-*` and several
-    `--gpus` raise (ROADMAP A item 9).
+    and change nothing (accumulation is sequential here already).
+
+Several processes (`parallel/`), as `cli.train`: `--dist-coordinator
+host:port --dist-num-processes N --dist-process-id R` starts rank R of N,
+and `--gpus a,b,...` starts one process per id.  Each rank assembles its
+rows of every microbatch of a macro step (the JAX command's batch axis 1 of
+the stacked (iter_size, B, ...) layout) from its own seed (`process_seed`),
+BatchNorm normalizes over the global microbatch, and each stepping
+optimizer averages its gradients once, just before it steps: a gradient
+carried from the D phase into the G phase (or back) is each rank's own sum
+until then, and by linearity the average of carry plus this phase's sums
+is the global batch's.  `--fsdp 1` shards parameters and moments with
+FSDP2 (on one process it trains unsharded and says so); `--tp N` shards
+the large layers' output channels over N adjacent ranks
+(`parallel/tensor.py`); across processes both need a step directory
+(`--ckpt-backend orbax*`).  `--auto-resume` resumes at the oldest newest
+epoch over the ranks (an all-reduce min), so that no rank runs ahead.
+Rank 0 alone prints and writes torch files and scores; before a
+checkpoint the carried gradients are averaged over the ranks (a file keeps
+one copy), which leaves the next step the same.
 """
 
 from __future__ import annotations
@@ -57,7 +74,11 @@ import time
 import numpy as np
 import torch
 
-from dmcnet_tpu_torch.cli.common import device_for, refuse_unported
+from dmcnet_tpu_torch.cli.common import (
+    check_parallel_flags,
+    device_for,
+    place,
+)
 from dmcnet_tpu_torch.data.iterator_factory import creat, dataset_num_classes
 from dmcnet_tpu_torch.data.loader import PrefetchLoader
 from dmcnet_tpu_torch.data.video_iter import (
@@ -69,6 +90,15 @@ from dmcnet_tpu_torch.models.import_tf_i3d import load_tf_weights
 from dmcnet_tpu_torch.models.weights import (
     load_reference_i3d,
     load_reference_i3d_2d,
+)
+from dmcnet_tpu_torch.parallel.mesh import all_reduce_mean
+from dmcnet_tpu_torch.parallel.multihost import (
+    initialize_distributed,
+    local_shard_indices,
+    process_seed,
+    shutdown,
+    spawn_ranks,
+    world,
 )
 from dmcnet_tpu_torch.train.checkpoints import (
     dcp_checkpoint_committed,
@@ -116,8 +146,9 @@ def build_parser(dataset_default="HMDB51"):
     p.add_argument('--detach', type=int, default=0)
     p.add_argument('--ds_factor', type=int, default=16)
     p.add_argument('--gpus', type=str, default="0",
-                   help='card id; several ids (data parallelism) are not '
-                        'ported yet (ROADMAP A item 9)')
+                   help='card ids, comma-separated; several start one '
+                        'data-parallel process per id on this host (with '
+                        '--device cpu, gloo processes on the CPU)')
     p.add_argument('--network', type=str, default='I3D', choices=['I3D'])
     p.add_argument('--arch-estimator', type=str, default=None,
                    choices=['DenseNet', 'DenseNetSmall', 'DenseNetTiny'])
@@ -177,13 +208,17 @@ def build_parser(dataset_default="HMDB51"):
                         'DataLoader num_workers=8, iterator_factory.py:184)')
     p.add_argument('--accum-chunk', type=int, default=0, help=_NOT_PORTED)
     p.add_argument('--tp', type=int, default=0,
-                   help='tensor parallelism: not ported yet (ROADMAP A '
-                        'item 9)')
+                   help='tensor parallelism degree: the large layers '
+                        'sharded on their output channels over this many '
+                        'adjacent processes (parallel/tensor.py)')
     p.add_argument('--fsdp', type=int, default=0,
-                   help='sharded state: not ported yet (ROADMAP A item 9)')
+                   help='shard parameters and optimizer moments over the '
+                        'processes (FSDP2); across processes it needs '
+                        '--ckpt-backend orbax')
     p.add_argument('--dist-coordinator', type=str, default=None,
-                   help='multi-process training: not ported yet (ROADMAP A '
-                        'item 9)')
+                   help='host:port of rank 0 for multi-process training '
+                        '(torch.distributed, tcp://); needs '
+                        '--dist-num-processes and --dist-process-id')
     p.add_argument('--dist-num-processes', type=int, default=None)
     p.add_argument('--dist-process-id', type=int, default=None)
     p.add_argument('--device', type=str, default='cuda',
@@ -265,14 +300,27 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     `build_parser` through `autofill`; `input_size` is the reference's 224
     unless a caller shrinks it."""
     device = torch.device(device)
-    torch.manual_seed(args.random_seed)  # the dropout masks
+    rank, world_size = world()
+    parallel = world_size > 1
+    say = print if rank == 0 else _silent
+    tp = max(args.tp or 1, 1)
+    # the dropout masks: each data row draws its own
+    torch.manual_seed(process_seed(args.random_seed, tp))
     has_gan = args.adv > 0
     model, conf = build_model(args, dataset_num_classes(args.dataset),
                               input_size)
     init_pretrained(args, model)
     model.to(device)
+    if args.fsdp and not parallel:
+        say("--fsdp 1 on one process: nothing to shard")
+    placement = place(model, fsdp=args.fsdp, tp=tp)
+    if placement.tp > 1:
+        say(f"tensor-parallel {world_size // tp}x{tp} mesh (batch "
+            f"{args.batch_size} -> "
+            f"{args.batch_size * tp // world_size}/data row)")
     train_asm = I3DBatchAssembler(train_ds, input_size=input_size,
-                                  is_train=True, seed=args.random_seed)
+                                  is_train=True,
+                                  seed=process_seed(args.random_seed, tp))
     val_asm = I3DBatchAssembler(val_ds, input_size=input_size,
                                 is_train=False)
     aug = dict(modality=args.modality, ds_factor=args.ds_factor,
@@ -282,17 +330,18 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     # variables; drawing it here too keeps both commands' streams of
     # frames and crops the same.
     sample = i3d_augment_batch(train_asm.batch([0]), **aug)
-    print("sample clip: " + ", ".join(
+    say("sample clip: " + ", ".join(
         f"{k} {tuple(v.shape)}" for k, v in sorted(sample.items())))
     del sample
 
     def optimizers_for(stage2):
         # Stage 1 of flow+mp4 freezes the base I3D whatever --detach says
-        # (reference model.py:273-277).
-        return make_i3d_optimizers(
+        # (reference model.py:273-277).  Across processes every optimizer,
+        # the stage-2 ones too, averages its gradients before it steps.
+        return placement.prepare(make_i3d_optimizers(
             model, optim=args.optimizer,
             lr_mul=0.2 if args.fine_tune else 0.5, has_gan=has_gan,
-            stage2=stage2, freeze_base=args.epoch_thre > 0 and not stage2)
+            stage2=stage2, freeze_base=args.epoch_thre > 0 and not stage2))
 
     def steps_for(opts, stage2):
         # Stage 1 under --detach steps the classifier at lr 0; its moments
@@ -316,9 +365,11 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     if args.auto_resume and args.resume_epoch < 0:
         newest = next((e for e in range(args.end_epoch, 0, -1)
                        if found(e)), -1)
+        if parallel:   # the oldest newest epoch over the ranks
+            newest = agree_min(newest)
         if newest >= 0:
             args.resume_epoch = newest
-            print(f"--auto-resume: epoch {newest}")
+            say(f"--auto-resume: epoch {newest}")
     # A resume at or after epoch_thre builds the stage-2 optimizers first,
     # so that the checkpoint's states restore into them.
     switched = args.resume_epoch >= max(args.epoch_thre, 0)
@@ -326,7 +377,7 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     if args.resume_epoch >= 0:
         ckpt = ckpt_path(args.resume_epoch)
         meta = load_i3d_checkpoint(ckpt, model, opts, stage2=switched)
-        print(f"resumed from {ckpt} (epoch {meta['epoch']})")
+        say(f"resumed from {ckpt} (epoch {meta['epoch']})")
     d_step, g_step = steps_for(opts, switched)
     eval_step = make_i3d_eval_step(model)
 
@@ -345,23 +396,25 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     bs, iters = args.batch_size, args.iter_size
     batches_per_epoch = max(1, len(train_ds) // (bs * iters))
 
+    rows = list(local_shard_indices(bs, tp))
+
     def host_micro(i):
-        """The clips of macro step i, in the JAX command's order; host work
-        only (decode and assembly), run by the loader threads."""
+        """This rank's clips of macro step i, in the JAX command's order;
+        host work only (decode and assembly), run by the loader threads."""
         start = i * bs * iters
         return [train_asm.batch([(start + k * bs + j) % len(train_ds)
-                                 for j in range(bs)])
+                                 for j in rows])
                 for k in range(iters)]
 
     result = TrainResult(-1.0, model, opts, [])
     os.makedirs(args.score_dir, exist_ok=True)
     os.makedirs(args.model_dir, exist_ok=True)
-    mlog = MetricsLogger(args.metrics_jsonl)
+    mlog = MetricsLogger(args.metrics_jsonl if rank == 0 else None)
     try:
         for epoch in range(max(args.resume_epoch, 0), args.end_epoch):
             if epoch >= args.epoch_thre and not switched:
-                print("stage 2: fresh classifier and generator optimizers "
-                      "(reference model.py:347-351)")
+                say("stage 2: fresh classifier and generator optimizers "
+                    "(reference model.py:347-351)")
                 fresh = optimizers_for(True)
                 opts.update(cls=fresh["cls"], gf=fresh["gf"])
                 d_step, g_step = steps_for(opts, True)
@@ -382,15 +435,18 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                 metrics = step((i3d_augment_batch(m, **aug) for m in micros),
                                lr, lr1, lr_d or 0.0, WEIGHT_DECAY, epoch < 1)
                 n = bs * iters
-                for k in ("loss", "loss_cls", "loss_mse", "top1"):
-                    if k in metrics:
-                        meters[k].update(metrics[k].item(), n)
+                keys = [k for k in ("loss", "loss_cls", "loss_mse", "top1")
+                        if k in metrics]
+                # the ranks' means over equally many rows: the global ones
+                for k, v in zip(keys, all_reduce_mean(
+                        [metrics[k] for k in keys])):
+                    meters[k].update(v, n)
                 now = time.time()
                 batch_times.append(now - end)
                 meters["speed"].update(n / (now - t0))
                 end = now
                 if i_batch % PRINT_FREQ == 0:
-                    print(f"Epoch[{epoch}] Batch [{i_batch}]  "
+                    say(f"Epoch[{epoch}] Batch [{i_batch}]  "
                           f"Speed: {meters['speed'].avg:.2f} samples/sec  "
                           f"loss-ce {meters['loss_cls'].avg:.5f}  "
                           f"top-1 {meters['top1'].avg:.5f}")
@@ -405,64 +461,90 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                 "data_times": data_times, "batch_times": batch_times})
 
             scores, labels, top1 = validate(val_asm, eval_step, bs, aug,
-                                            bool(args.bf16))
-            print(f"Epoch[{epoch}] eval top-1: {top1:.3f} "
-                  f"({time.time() - t_epoch:.1f}s)")
+                                            bool(args.bf16), tp)
+            say(f"Epoch[{epoch}] eval top-1: {top1:.3f} "
+                f"({time.time() - t_epoch:.1f}s)")
             mlog.log("eval", epoch=epoch, top1=top1,
                      epoch_s=round(time.time() - t_epoch, 1))
             if top1 > result.best_top1:
                 result.best_top1 = top1
-                np.savez(os.path.join(args.score_dir, "score_best.npz"),
-                         scores=scores, labels=labels, top1=top1)
+                if rank == 0:
+                    np.savez(os.path.join(args.score_dir, "score_best.npz"),
+                             scores=scores, labels=labels, top1=top1)
             if epoch == 0 or (epoch + 1) % max(int(args.save_frequency),
                                                1) == 0:
                 # ep-N is the state ready to train epoch N (reference
                 # epoch_end_callback, train/model.py:253-260)
                 meta = {"epoch": epoch + 1, "top1": top1,
                         "stage2": switched}
-                if directory:
+                placement.average_carry(model)
+                if directory:   # every rank writes its shards
                     result.checkpoint = save_i3d_checkpoint_dcp(
                         model, opts, meta, ckpt_path(epoch + 1),
                         wait=args.ckpt_backend != "orbax-async")
-                else:
+                elif rank == 0:
                     result.checkpoint = save_i3d_checkpoint(
                         model, opts, meta, ckpt_path(epoch + 1))
+                else:
+                    result.checkpoint = ckpt_path(epoch + 1)
     finally:
         mlog.close()
         wait_for_checkpoints()  # drain background writes before returning
     return result
 
 
-def validate(val_asm, eval_step, batch_size, aug, bf16):
+def _silent(*args, **kwargs):
+    pass
+
+
+def agree_min(value):
+    """The least of the ranks' integer `value`s (an all-reduce min)."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(value)], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
+
+
+def validate(val_asm, eval_step, batch_size, aug, bf16, tp=1):
     """Softmax scores (N, C), labels (N,) and top-1 in percent over the
-    validation set, batch by batch (reference train/model.py:531-577)."""
-    scores, labels = [], []
+    validation set, batch by batch (reference train/model.py:531-577).
+    Each data row scores its rows of each batch (a rank with none left in
+    the ragged last batch scores the last row and drops it: the sharded
+    forwards need every rank) and every rank gets all of them."""
     n = len(val_asm.ds)
+    rows = list(local_shard_indices(batch_size, tp))
+    got = {}
     for start in range(0, n, batch_size):
-        b = i3d_augment_batch(
-            val_asm.batch(range(start, min(start + batch_size, n))), **aug)
+        stop = min(start + batch_size, n)
+        idx = [start + j for j in rows if start + j < stop]
+        b = i3d_augment_batch(val_asm.batch(idx or [stop - 1]), **aug)
         with _autocast(b["label"].device, bf16):
             m = eval_step(b)
-        scores.append(torch.softmax(m["logits"].float(), -1).cpu().numpy())
-        labels.append(m["label"].cpu().numpy())
-    scores, labels = np.concatenate(scores), np.concatenate(labels)
+        s = torch.softmax(m["logits"].float(), -1).cpu().numpy()
+        for i, row, label in zip(idx, s, m["label"].cpu().numpy()):
+            got[i] = (row, label)
+    if world()[1] > 1:
+        import torch.distributed as dist
+
+        parts = [None] * world()[1]
+        dist.all_gather_object(parts, got)
+        for part in parts:
+            got.update(part)
+    scores = np.stack([got[i][0] for i in range(n)])
+    labels = np.asarray([got[i][1] for i in range(n)])
     return scores, labels, 100.0 * float((scores.argmax(-1) == labels).mean())
 
 
 def main(argv=None, dataset_default="HMDB51", input_size=224):
     """`input_size` is the reference's 224; tests shrink it."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = autofill(build_parser(dataset_default).parse_args(argv))
     args.gpus = [int(g) for g in args.gpus.split(",") if g.strip()]
-    refuse_unported([
-        (args.fsdp, "--fsdp", "A item 9 (parallel layer)"),
-        ((args.tp or 0) > 1, "--tp > 1", "A item 9 (parallel layer)"),
-        (len(args.gpus) > 1, "--gpus with several ids",
-         "A item 9 (parallel layer)"),
-        (args.dist_coordinator is not None
-         or args.dist_num_processes is not None
-         or args.dist_process_id is not None,
-         "--dist-*", "A item 9 (parallel layer)"),
-    ])
+    spawn = len(args.gpus) > 1 and args.dist_num_processes is None
+    n_proc = len(args.gpus) if spawn else (args.dist_num_processes or 1)
+    check_parallel_flags(n_proc, args.batch_size, args.tp, args.fsdp,
+                         args.ckpt_backend.startswith("orbax"))
     if args.modality != "flow+mp4" or not args.arch_estimator:
         raise SystemExit("train_i3d trains flow+mp4 clips through a "
                          "generator (--modality flow+mp4 with "
@@ -470,21 +552,38 @@ def main(argv=None, dataset_default="HMDB51", input_size=224):
     if args.adv > 0 and not args.arch_d:
         raise SystemExit(f"--adv {args.adv} needs a discriminator "
                          "(--arch-d)")
+    if spawn:
+        return spawn_ranks(main, argv, args.gpus,
+                           dataset_default=dataset_default,
+                           input_size=input_size)
     for flag, value in (("--accum-chunk", args.accum_chunk),
                         ("--remat", args.remat != "0"),
                         ("--packed-gen", args.packed_gen)):
-        if value:
+        if value and (args.dist_process_id or 0) == 0:
             print(f"{flag}: {_NOT_PORTED}")
     device = device_for(args)
-    train_ds, val_ds = creat(
-        args.dataset, args.data_root, args.video_prefix, args.flow_prefix,
-        split=args.split, clip_length=args.clip_length,
-        train_interval=args.train_frame_interval,
-        val_interval=args.val_frame_interval, modality=args.modality,
-        accumulate=bool(args.accumulate),
-        mv_minmaxnorm=bool(args.mv_minmaxnorm), seed=args.random_seed)
-    return train(args, train_ds, val_ds, device=device,
-                 input_size=input_size).best_top1
+    if device.type == "cuda" and args.dist_num_processes:
+        if not any(a.startswith("--gpus") for a in argv):
+            # rank r drives card r of its host
+            device = torch.device("cuda", (args.dist_process_id or 0)
+                                  % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    initialize_distributed(args.dist_coordinator, args.dist_num_processes,
+                           args.dist_process_id, device=device.type)
+    try:
+        train_ds, val_ds = creat(
+            args.dataset, args.data_root, args.video_prefix,
+            args.flow_prefix, split=args.split,
+            clip_length=args.clip_length,
+            train_interval=args.train_frame_interval,
+            val_interval=args.val_frame_interval, modality=args.modality,
+            accumulate=bool(args.accumulate),
+            mv_minmaxnorm=bool(args.mv_minmaxnorm),
+            seed=process_seed(args.random_seed, args.tp or 1))
+        return train(args, train_ds, val_ds, device=device,
+                     input_size=input_size).best_top1
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

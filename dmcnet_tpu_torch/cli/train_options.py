@@ -154,8 +154,12 @@ def build_parser(gan=False):
                              'the processes (FSDP2); across processes it '
                              'needs --ckpt-backend orbax.')
     parser.add_argument('--tp', type=int, default=0,
-                        help='tensor parallelism degree: not ported yet '
-                             '(ROADMAP A item 9); raises when > 1.')
+                        help='tensor parallelism degree: every large '
+                             'convolution and linear layer sharded on its '
+                             'output channels over this many adjacent '
+                             'processes (it must divide their number; the '
+                             'batch splits over the rest); across '
+                             'processes it needs --ckpt-backend orbax.')
     parser.add_argument('--profile-dir', type=str, default=None,
                         help='trace of training steps: not ported yet '
                              '(ROADMAP A item 10); raises when set.')

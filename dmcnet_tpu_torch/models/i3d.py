@@ -21,6 +21,12 @@ Module names are the reference keys that the JAX package's importer reads
 `branch_3.1` (`branch_3.0` is the pool), `conv3d_0c_1x1.conv3d`,
 `classifier`, `gen_flow_model`, `discriminator`.
 
+Every op with a temporal window (the `Unit3D`s, the pools, the final
+average) runs through `layers.window3d`, and the mean over T is the last
+temporal op.  Given a `parallel.temporal.TimeShard`, `features_to_logits`
+runs on one rank's frames of a clip split along T (`evaluate_video_i3d
+--shard-time`); without one it is the plain forward.
+
 The JAX package's TPU lowerings (`unroll_time`, `remat`, `packed_gen`) are
 not ported: they change neither parameters nor results.
 """
@@ -36,7 +42,7 @@ from dmcnet_tpu_torch.models.generators import make_estimator
 from dmcnet_tpu_torch.models.layers import (
     batch_norm3d,
     max_pool3d_same,
-    same_pad_3d,
+    window3d,
 )
 
 
@@ -52,12 +58,14 @@ class Unit3D(nn.Module):
         self.batch3d = batch_norm3d(c_out) if use_bn else None
         self.relu = activation == "relu"
 
-    def forward(self, x):
-        x = self.conv3d(F.pad(x, same_pad_3d(x.shape[2:], self.kernel,
-                                             self.stride)))
+    def _unpadded(self, x):
+        x = self.conv3d(x)
         if self.batch3d is not None:
             x = self.batch3d(x)
         return F.relu(x) if self.relu else x
+
+    def forward(self, x, shard=None):
+        return window3d(x, self.kernel, self.stride, self._unpadded, shard)
 
 
 class MaxPool3dSame(nn.Module):
@@ -65,8 +73,8 @@ class MaxPool3dSame(nn.Module):
         super().__init__()
         self.kernel, self.stride = tuple(kernel), tuple(stride)
 
-    def forward(self, x):
-        return max_pool3d_same(x, self.kernel, self.stride)
+    def forward(self, x, shard=None):
+        return max_pool3d_same(x, self.kernel, self.stride, shard)
 
 
 class Mixed(nn.Module):
@@ -84,9 +92,14 @@ class Mixed(nn.Module):
         self.branch_3 = nn.Sequential(MaxPool3dSame((3, 3, 3), (1, 1, 1)),
                                       Unit3D(c_in, b3))
 
-    def forward(self, x):
-        return torch.cat([self.branch_0(x), self.branch_1(x),
-                          self.branch_2(x), self.branch_3(x)], dim=1)
+    def forward(self, x, shard=None):
+        ys = [self.branch_0(x, shard)]
+        for branch in (self.branch_1, self.branch_2, self.branch_3):
+            y = x
+            for layer in branch:
+                y = layer(y, shard)
+            ys.append(y)
+        return torch.cat(ys, dim=1) if shard is None else shard.cat(ys)
 
 
 _MIXED_PLAN = {
@@ -155,21 +168,27 @@ class I3D(nn.Module):
         gen = self.gen_flow_model(frames)
         return gen.reshape(b, t, -1, h, w).permute(0, 2, 1, 3, 4)
 
-    def features_to_logits(self, x):
+    def features_to_logits(self, x, shard=None):
+        """Logits (B, C) of the flow or RGB clip `x`; with a `shard`, of
+        this rank's `Frames` of it (the logits on every rank)."""
         names = ["conv3d_1a_7x7", "conv3d_2b_1x1", "conv3d_2c_3x3",
                  *_MIXED_PLAN]
         for name in names:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, shard)
             if name in _POOLS:
-                x = max_pool3d_same(x, *_POOLS[name])
+                x = max_pool3d_same(x, *_POOLS[name], shard)
         # AvgPool3d((2, 7, 7), stride 1), VALID (i3d.py:549), its window
-        # clipped to the feature shape so that inputs under 224 x 224 or 16
-        # frames stay legal; at those sizes and above it is (2, 7, 7).
+        # clipped to the (global) feature shape so that inputs under
+        # 224 x 224 or 16 frames stay legal; at those sizes and above it
+        # is (2, 7, 7).
         win = tuple(min(k, n) for k, n in zip((2, 7, 7), x.shape[2:]))
-        x = F.avg_pool3d(x, win, stride=1)
-        x = self.conv3d_0c_1x1(x)
+        x = window3d(x, win, (1, 1, 1),
+                     lambda v: F.avg_pool3d(v, win, stride=1), shard,
+                     same=False)
+        x = self.conv3d_0c_1x1(x, shard)
         # squeeze space, mean over time (Unit3Dpy, i3d.py:398-402)
-        x = x.squeeze(4).squeeze(3).mean(2)
+        x = x.squeeze(4).squeeze(3).mean(2) if shard is None else \
+            shard.mean_t(x)
         return self.classifier(self.dropout(x))
 
     def forward(self, inp, node="logit", detach=False):

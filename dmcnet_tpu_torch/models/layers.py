@@ -49,8 +49,23 @@ def same_pad_3d(sizes, kernel, stride):
     return tuple(p for lo_hi in reversed(pads) for p in lo_hi)
 
 
-def max_pool3d_same(x, kernel, stride):
+def window3d(x, kernel, stride, op, shard=None, same=True, pad_value=0.0):
+    """`op`, an unpadded window of `kernel` and `stride`, on (B, C, T, H,
+    W) padded with `pad_value` to `SAME` (`same_pad_3d`), or not at all
+    (VALID).  With a `shard` (`parallel.temporal.TimeShard`), `x` is this
+    rank's `Frames` of a clip split along T and the T window runs through
+    `shard.window`, which pads from the global T."""
+    if shard is not None:
+        return shard.window(x, kernel, stride, op, same, pad_value)
+    if same:
+        x = F.pad(x, same_pad_3d(x.shape[2:], kernel, stride),
+                  value=pad_value)
+    return op(x)
+
+
+def max_pool3d_same(x, kernel, stride, shard=None):
     """Max pool with `SAME` padding on (B, C, T, H, W).  The padding is
     -inf, as XLA pads a max window, so any input pools exactly."""
-    pad = same_pad_3d(x.shape[2:], kernel, stride)
-    return F.max_pool3d(F.pad(x, pad, value=float("-inf")), kernel, stride)
+    return window3d(x, kernel, stride,
+                    lambda v: F.max_pool3d(v, kernel, stride), shard,
+                    pad_value=float("-inf"))

@@ -23,17 +23,20 @@ from __future__ import annotations
 DEFAULT_MIN_SIZE = 2 ** 14
 
 
-def shard_model(model):
+def shard_model(model, mesh=None):
     """`fully_shard` every module of `model` that owns a parameter of at
-    least `DEFAULT_MIN_SIZE` elements, over a 1-D DeviceMesh of every rank
-    on the parameters' device type.  Build the optimizers after this call:
-    it replaces the parameters.  Returns the sharded modules' names."""
+    least `DEFAULT_MIN_SIZE` elements, over `mesh` (a 1-D DeviceMesh; None:
+    every rank on the parameters' device type; under tensor parallelism
+    the `data` dim of its 2-D mesh).  Build the optimizers after this
+    call: it replaces the parameters.  Returns the sharded modules'
+    names."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.fsdp import fully_shard
 
-    device = next(model.parameters()).device
-    mesh = init_device_mesh(device.type, (dist.get_world_size(),))
+    if mesh is None:
+        device = next(model.parameters()).device
+        mesh = init_device_mesh(device.type, (dist.get_world_size(),))
     names = [name for name, module in model.named_modules()
              if any(p.numel() >= DEFAULT_MIN_SIZE
                     for p in module.parameters(recurse=False))]

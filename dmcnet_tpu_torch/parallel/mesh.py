@@ -29,6 +29,13 @@ Each rank's losses are means over its rows and the ranks' rows are equally
 many, so the mean of the ranks' gradients is the gradient of the global
 batch's loss.  A collective that fails raises: nothing drops the global BN
 or the all-reduce to carry on.
+
+Everything reduces over every rank, with two exceptions for tensor
+parallelism (`parallel/tensor.py`), where the ranks of one `model` row hold
+the same rows: `use_global_batchnorm` takes the `data` group for the BN
+statistics (the unbiased running variance counts each row once), and the
+gradient averaging takes it as `sharded_group` for the channel-sharded
+parameters (averaging them over every rank would mix different shards).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from dmcnet_tpu_torch.parallel.multihost import all_reduce
 
 
 class _GlobalBNFunction(torch.autograd.Function):
@@ -49,7 +58,7 @@ class _GlobalBNFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, momentum,
-                eps):
+                eps, group):
         ctx.in_dtype = x.dtype
         x = x.to(torch.promote_types(x.dtype, weight.dtype))
         c = x.shape[1]
@@ -57,12 +66,12 @@ class _GlobalBNFunction(torch.autograd.Function):
         count = torch.full((1,), x.numel() // c, dtype=x.dtype,
                            device=x.device)
         packed = torch.cat([count, x.sum(dims)])
-        dist.all_reduce(packed)
+        all_reduce(packed, group)
         n, mean = packed[0], packed[1:] / packed[0]
         shape = [1, c] + [1] * (x.dim() - 2)
         xc = x - mean.view(shape)
         sq = (xc * xc).sum(dims)
-        dist.all_reduce(sq)
+        all_reduce(sq, group)
         var = sq / n
         invstd = torch.rsqrt(var + eps)
         xhat = xc * invstd.view(shape)
@@ -74,7 +83,7 @@ class _GlobalBNFunction(torch.autograd.Function):
                 running_var.mul_(1 - momentum).add_(
                     unbiased.to(running_var.dtype), alpha=momentum)
         ctx.save_for_backward(xhat, invstd, weight)
-        ctx.n = n
+        ctx.n, ctx.group = n, group
         return xhat * weight.view(shape) + bias.view(shape)
 
     @staticmethod
@@ -87,18 +96,20 @@ class _GlobalBNFunction(torch.autograd.Function):
         sum_dy = dy.sum(dims)
         sum_dy_xhat = (dy * xhat).sum(dims)
         packed = torch.cat([sum_dy, sum_dy_xhat])
-        dist.all_reduce(packed)
+        all_reduce(packed, ctx.group)
         mean_dy = (packed[:c] / ctx.n).view(shape)
         mean_dy_xhat = (packed[c:] / ctx.n).view(shape)
         dx = (weight * invstd).view(shape) * (dy - mean_dy
                                               - xhat * mean_dy_xhat)
         return (dx.to(ctx.in_dtype), sum_dy_xhat.to(weight.dtype),
-                sum_dy.to(weight.dtype), None, None, None, None)
+                sum_dy.to(weight.dtype), None, None, None, None, None)
 
 
 class GlobalBatchNorm(nn.modules.batchnorm._BatchNorm):
     """A BatchNorm1d/2d/3d whose train-mode statistics are those of the
-    batch over every rank."""
+    batch over the ranks of `self.group` (None: every rank)."""
+
+    group = None
 
     def forward(self, x):
         if not self.training:
@@ -113,21 +124,23 @@ class GlobalBatchNorm(nn.modules.batchnorm._BatchNorm):
                     if self.momentum is None else self.momentum)
         return _GlobalBNFunction.apply(
             x, self.weight, self.bias, self.running_mean, self.running_var,
-            momentum, self.eps)
+            momentum, self.eps, self.group)
 
 
-def use_global_batchnorm(model):
-    """Swap `GlobalBatchNorm` into every BatchNorm module of `model` in
-    place; parameters and buffers are the same objects, so optimizers
-    built before or after the swap hold them.  Returns `model`."""
+def use_global_batchnorm(model, group=None):
+    """Swap `GlobalBatchNorm` over `group` into every BatchNorm module of
+    `model` in place; parameters and buffers are the same objects, so
+    optimizers built before or after the swap hold them.  Returns
+    `model`."""
     for name, child in list(model.named_children()):
         if isinstance(child, nn.modules.batchnorm._BatchNorm) and \
                 not isinstance(child, GlobalBatchNorm):
             bn = GlobalBatchNorm.__new__(GlobalBatchNorm)
             bn.__dict__.update(child.__dict__)
+            bn.group = group
             setattr(model, name, bn)
         else:
-            use_global_batchnorm(child)
+            use_global_batchnorm(child, group)
     return model
 
 
@@ -137,49 +150,67 @@ def _is_dtensor(t):
     return isinstance(t, DTensor)
 
 
-def average_gradients(params):
-    """Average the `.grad` of `params` (plain tensors; DTensors skipped)
-    over the ranks: one flat all-reduce per dtype and device."""
+def _average(grads, group=None):
+    """Average `grads` (plain tensors) in place over `group` (None: every
+    rank): one flat all-reduce per dtype and device."""
     buckets = {}
-    for p in params:
-        if p.grad is not None and not _is_dtensor(p):
-            buckets.setdefault((p.grad.dtype, p.grad.device), []).append(p)
-    size = dist.get_world_size()
-    for ps in buckets.values():
-        flat = torch.cat([p.grad.reshape(-1) for p in ps])
-        dist.all_reduce(flat)
+    for g in grads:
+        buckets.setdefault((g.dtype, g.device), []).append(g)
+    size = dist.get_world_size(group)
+    for gs in buckets.values():
+        flat = torch.cat([g.reshape(-1) for g in gs])
+        all_reduce(flat, group)
         flat.div_(size)
         offset = 0
-        for p in ps:
-            n = p.grad.numel()
-            p.grad.copy_(flat[offset:offset + n].view_as(p.grad))
-            offset += n
+        for g in gs:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
 
 
-def sync_gradients(optimizers):
-    """Average each optimizer's gradients over the ranks just before it
-    steps (a step pre-hook).  Returns the hooks' handles."""
+def average_gradients(params, sharded_group=None):
+    """Average the `.grad` of `params` over every rank.  A
+    DTensor parameter is FSDP2's, whose reduce-scatter averages it, unless
+    `sharded_group` is given: then its local shard of `.grad` averages
+    over that group (tensor parallelism's `data` group)."""
+    plain, sharded = [], []
+    for p in params:
+        if p.grad is None:
+            continue
+        if not _is_dtensor(p):
+            plain.append(p.grad)
+        elif sharded_group is not None:
+            sharded.append(p.grad.to_local())
+    _average(plain)
+    if sharded:
+        _average(sharded, sharded_group)
+
+
+def sync_gradients(optimizers, sharded_group=None):
+    """Average each optimizer's gradients (`average_gradients`, DTensors
+    over `sharded_group`) just before it steps (a step pre-hook).  Returns
+    the hooks' handles."""
     def hook(opt, args, kwargs):
-        average_gradients([p for g in opt.param_groups for p in g["params"]])
+        average_gradients([p for g in opt.param_groups for p in g["params"]],
+                          sharded_group)
 
     return [opt.register_step_pre_hook(hook) for opt in optimizers]
 
 
 def all_reduce_sum(values):
-    """Sums over the ranks of a list of 0-d tensors or floats (one
-    all-reduce, float64 on the tensors' device); returns floats, the
+    """Sums over every rank of a list of 0-d tensors or floats
+    (one all-reduce, float64 on the tensors' device); returns floats, the
     values themselves when there is no process group."""
-    if not (dist.is_available() and dist.is_initialized()):
+    if not (values and dist.is_available() and dist.is_initialized()):
         return [float(v) for v in values]
     device = next((v.device for v in values if isinstance(v, torch.Tensor)),
                   torch.device("cpu"))
     flat = torch.stack([torch.as_tensor(v, dtype=torch.float64)
                         .to(device).reshape(()) for v in values])
-    dist.all_reduce(flat)
+    all_reduce(flat)
     return flat.tolist()
 
 
 def all_reduce_mean(values):
-    """Means over the ranks of a list of 0-d tensors or floats."""
+    """Means over every rank of a list of 0-d tensors or floats."""
     size = dist.get_world_size() if dist.is_initialized() else 1
     return [v / size for v in all_reduce_sum(values)]

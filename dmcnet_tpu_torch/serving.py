@@ -14,9 +14,22 @@ The forward is the JAX package's `pack=False` semantics in float32.  What
 the JAX code does only for the TPU is not carried over: frames are picked
 with an index gather (not a one-hot contraction), inputs move as separate
 tensors (not one flat u8 buffer), and nothing is compiled per shape.
+
+Several cards (`mesh=[device, ...]`, the JAX package's 1-D serving mesh):
+the predictor holds a replica of the model on each device, splits each GOP
+chunk and each host-path clip batch into contiguous per-device slices
+(`np.array_split`: ragged shares, no quantum to lift since nothing is
+compiled per shape), copies each slice to its device, launches every
+device's program before it reads any result back, so that the cards
+overlap, and concatenates the outputs in input order.  GOPs are
+independent: each device back-traces its own with the kernel
+(`backtrace_warp_batch`, once per device per chunk) and no collective
+runs.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -31,7 +44,8 @@ from dmcnet_tpu_torch.ops.backtrace import backtrace_warp_batch
 
 class DMCPredictor:
     """MV-representation DMC-Net inference over whole videos, in eval mode
-    on `device` (default CUDA; raises when CUDA is unavailable)."""
+    on `device` (default CUDA; raises when CUDA is unavailable), or over
+    the devices of `mesh`."""
 
     _gop_quant = 4  # GOP-batch size quantum of the chunk ladder
 
@@ -41,13 +55,21 @@ class DMCPredictor:
                  backtrace_impl=None, device=None, seed=0):
         """`state_dict`: the port's (or a reference) DMCNet state_dict;
         None keeps the random initialisation drawn from `seed`.
+        `mesh`: a sequence of devices to serve over (a replica on each;
+        `device` is then its first); cards need CUDA, with no fallback.
         `backtrace_impl` replaces `backtrace_warp_batch` (the kernel on
         CUDA tensors, its plain version on CPU tensors)."""
-        if mesh:
-            raise NotImplementedError(
-                "serving over a device mesh is not ported yet (ROADMAP A "
-                "item 9, with A4)")
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None:
+            raise ValueError("give either `device` or `mesh`")
+        self.mesh = ([resolve_device(d) for d in mesh] if mesh is not None
+                     else [resolve_device(device)])
+        if not self.mesh:
+            raise ValueError("an empty mesh")
+        if any(d.type == "cuda" for d in self.mesh) and \
+                not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: a mesh of cards "
+                               "needs it")
+        self.device = self.mesh[0]
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             self.model = DMCNet(num_class=num_class, num_segments=1,
@@ -56,9 +78,13 @@ class DMCPredictor:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.model.to(self.device).eval()
+        # one replica a device (the first is `model`)
+        self.replicas = [self.model] + [
+            copy.deepcopy(self.model).to(d) for d in self.mesh[1:]]
         self.input_size = input_size
         self.mv_minmaxnorm = mv_minmaxnorm
-        self._res_std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        self._res_std = [torch.as_tensor(IMAGENET_STD, device=d)
+                         for d in self.mesh]
         self._backtrace = backtrace_impl or backtrace_warp_batch
 
     @classmethod
@@ -80,15 +106,36 @@ class DMCPredictor:
         return cls(sd, num_class=num_class, **kwargs)
 
     @torch.inference_mode()
-    def _forward_u8(self, mv, res):
-        """uint8-encoded representation (N, S, S, 2|3) -> logits (N, C);
-        normalised exactly like the training pipeline
-        (reference dataset.py:251-263)."""
+    def _forward_u8(self, mv, res, replica=0):
+        """uint8-encoded representation (N, S, S, 2|3) -> logits (N, C) by
+        the replica `replica`, on its device; normalised exactly like the
+        training pipeline (reference dataset.py:251-263)."""
         mv = (mv.float() / 255.0 - 0.5) / MEAN_STD
-        res = (res.float() / 255.0 - 0.5) / self._res_std
-        logits, _ = self.model(mv.permute(0, 3, 1, 2),
-                               res.permute(0, 3, 1, 2))
+        res = (res.float() / 255.0 - 0.5) / self._res_std[replica]
+        logits, _ = self.replicas[replica](mv.permute(0, 3, 1, 2),
+                                           res.permute(0, 3, 1, 2))
         return logits
+
+    def _shares(self, n):
+        """[(replica, start, stop)] of `n` rows split over the mesh
+        (`np.array_split`'s ragged shares), empty shares left out."""
+        bounds = np.cumsum([0] + [len(a) for a in np.array_split(
+            np.arange(n), len(self.mesh))])
+        return [(i, int(a), int(b))
+                for i, (a, b) in enumerate(zip(bounds[:-1], bounds[1:]))
+                if b > a]
+
+    def _forward_u8_mesh(self, mv, res):
+        """`_forward_u8` of host u8 arrays (N, S, S, 2|3) over the mesh:
+        each device its slice, all launched before any is read; logits
+        (N, C) as numpy in input order."""
+        parts = []
+        for i, a, b in self._shares(len(mv)):
+            d = self.mesh[i]
+            parts.append(self._forward_u8(
+                torch.from_numpy(mv[a:b]).to(d),
+                torch.from_numpy(res[a:b]).to(d), replica=i))
+        return np.concatenate([p.cpu().numpy() for p in parts])
 
     def _chunk_ladder(self, chunk_gops):
         """GOP-batch sizes a chunk is padded to: power-of-2 multiples of
@@ -101,9 +148,10 @@ class DMCPredictor:
         sizes.append(chunk_gops)
         return sizes
 
-    def _gop_program(self, g, t, h, w, cell, n_pick):
-        """GOP-batch program for one shape: tensors from `_pack_rows`
-        (cell MVs, I-frames, cropped picked frames, picks) on the device ->
+    def _gop_program(self, g, t, h, w, cell, n_pick, replica=0):
+        """GOP-batch program for one shape on the device of `replica`:
+        tensors from `_pack_rows` (cell MVs, I-frames, cropped picked
+        frames, picks) on that device ->
         (logits (g*n_pick, C), mv_u8 (g, n_pick, S, S, 2),
         res_u8 (g, n_pick, S, S, 3)).
 
@@ -147,13 +195,35 @@ class DMCPredictor:
                 res_u8 = torch.nn.functional.pad(res_u8, pad)
             logits = self._forward_u8(
                 mv_u8.reshape(g * n_pick, size, size, 2),
-                res_u8.reshape(g * n_pick, size, size, 3))
+                res_u8.reshape(g * n_pick, size, size, 3), replica)
             return logits, mv_u8, res_u8
 
         return fn
 
-    def _to_device(self, arrays):
-        return [torch.from_numpy(a).to(self.device) for a in arrays]
+    def _to_device(self, arrays, device=None):
+        return [torch.from_numpy(a).to(device or self.device)
+                for a in arrays]
+
+    def _launch(self, rows, g, tmax, h, w, cell, n_pick):
+        """Enqueue the GOP program of `rows` padded to `g` rows: over the
+        mesh, each device its contiguous share of the `g` rows, packed,
+        copied and launched before any result is read.  Returns [(logits,
+        mv_u8, res_u8)] on the devices, in row order (`gather_outputs`)."""
+        out = []
+        for i, a, b in self._shares(g):
+            fn = self._gop_program(b - a, tmax, h, w, cell, n_pick,
+                                   replica=i)
+            out.append(fn(*self._to_device(self._pack_rows(
+                rows[a:b], b - a, tmax, h, w, cell, n_pick),
+                self.mesh[i])))
+        return out
+
+    @staticmethod
+    def gather_outputs(parts):
+        """The host numpy (logits, mv_u8, res_u8) of `_launch`'s per-device
+        outputs, concatenated in row order."""
+        return tuple(np.concatenate([p[k].cpu().numpy() for p in parts])
+                     for k in range(3))
 
     def warmup(self, geometries=((256, 320),), t=12, cell=16,
                frames_per_gop=3, chunk_gops=64, host_buckets=(16,)):
@@ -172,21 +242,24 @@ class DMCPredictor:
             t_g = geom[2] if len(geom) > 2 else t
             cell_g = geom[3] if len(geom) > 3 else cell
             for g in self._chunk_ladder(top):
-                fn = self._gop_program(g, t_g, h, w, cell_g, frames_per_gop)
-                arrays = (
-                    np.zeros((g, t_g, h // cell_g, w // cell_g, 2), np.int32),
-                    np.zeros((g, h, w, 3), np.uint8),
-                    np.zeros((g, frames_per_gop, size, size, 3), np.uint8),
-                    np.ones((g, frames_per_gop), np.int64))
-                fn(*self._to_device(arrays))
+                for i, a, b in self._shares(g):
+                    n = b - a
+                    fn = self._gop_program(n, t_g, h, w, cell_g,
+                                           frames_per_gop, replica=i)
+                    arrays = (
+                        np.zeros((n, t_g, h // cell_g, w // cell_g, 2),
+                                 np.int32),
+                        np.zeros((n, h, w, 3), np.uint8),
+                        np.zeros((n, frames_per_gop, size, size, 3),
+                                 np.uint8),
+                        np.ones((n, frames_per_gop), np.int64))
+                    fn(*self._to_device(arrays, self.mesh[i]))
         for n in host_buckets:
-            self._forward_u8(
-                torch.zeros((n, size, size, 2), dtype=torch.uint8,
-                            device=self.device),
-                torch.zeros((n, size, size, 3), dtype=torch.uint8,
-                            device=self.device))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            self._forward_u8_mesh(np.zeros((n, size, size, 2), np.uint8),
+                                  np.zeros((n, size, size, 3), np.uint8))
+        for d in self.mesh:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
 
     def _center_crop(self, arr):
         size = self.input_size
@@ -273,9 +346,7 @@ class DMCPredictor:
             wts.append(w)
         if not mvs:
             raise ValueError(f"no usable GOPs in {path}")
-        mv, res = self._to_device([np.concatenate(mvs),
-                                   np.concatenate(ress)])
-        lg = self._forward_u8(mv, res).cpu().numpy()
+        lg = self._forward_u8_mesh(np.concatenate(mvs), np.concatenate(ress))
         wts = np.concatenate(wts)
         return (lg * wts[:, None]).sum(axis=0) / wts.sum()
 
@@ -378,10 +449,9 @@ class DMCPredictor:
         n_pick = max(frames_per_gop, max(counts))
         rows = [(cm, c, iframe, fp, pick) for (cm, c), (iframe, fp, _), pick
                 in zip(cms, gop_data, picks)]
-        fn = self._gop_program(g_pad, tmax, h, w, cell, n_pick)
-        logits, _, _ = fn(*self._to_device(
-            self._pack_rows(rows, g_pad, tmax, h, w, cell, n_pick)))
-        logits = logits.cpu().numpy().reshape(g_pad, n_pick, -1)
+        logits = self.gather_outputs(self._launch(
+            rows, g_pad, tmax, h, w, cell, n_pick))[0]
+        logits = logits.reshape(g_pad, n_pick, -1)
         rows = np.concatenate([logits[i, :k] for i, k in enumerate(counts)])
         wts = np.concatenate(weights)
         return (rows * wts[:, None]).sum(axis=0) / wts.sum()
@@ -457,10 +527,8 @@ class DMCPredictor:
                          max(len(pk) for *_, pk, _, _, _ in chunk))
             rows = [(cm, c, iframe, fp, pick)
                     for (_, cm, iframe, fp, pick, _, c, _) in chunk]
-            fn = self._gop_program(g, tmax, h, w, cell, n_pick)
-            logits, _, _ = fn(*self._to_device(
-                self._pack_rows(rows, g, tmax, h, w, cell, n_pick)))
-            in_flight.append((logits, chunk, n_pick))
+            in_flight.append((self._launch(rows, g, tmax, h, w, cell,
+                                           n_pick), chunk, n_pick))
 
         def consume(p, gathered, gather_exc):
             tmax_v = (max(t for _, _, t in gathered[1])
@@ -509,8 +577,8 @@ class DMCPredictor:
         for hw, buf in pending.items():
             if buf:  # flush the ragged tail chunk of each geometry
                 dispatch(hw, buf)
-        for logits, chunk, n_pick in in_flight:
-            lg = logits.cpu().numpy()
+        for parts, chunk, n_pick in in_flight:
+            lg = np.concatenate([p[0].cpu().numpy() for p in parts])
             lg = lg.reshape(-1, n_pick, lg.shape[-1])
             for i, (p, *_, pick, w_, c, t) in enumerate(chunk):
                 per_video[p].append((lg[i, :len(pick)], w_))

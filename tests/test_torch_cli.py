@@ -159,7 +159,6 @@ def test_port_train_test_combine(corpus, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cli,flags,item", [
-    ("train", ["--tp", "2"], "A item 9"),
     ("train", ["--profile-dir", "trace"], "A item 10"),
     ("test", ["--viz", "1"], "A item 10"),
     ("test", ["--pp", "2"], "A item 9"),
@@ -182,12 +181,15 @@ def test_unported_flags_raise(corpus, cli, flags, item):
 
 @pytest.mark.parametrize("flags", [
     ["--fsdp", "1"], ["--dist-coordinator", "localhost:1234"],
-    ["--ckpt-backend", "orbax-async"]], ids=["fsdp", "coordinator", "orbax"])
+    ["--ckpt-backend", "orbax-async"], ["--tp", "2"]],
+    ids=["fsdp", "coordinator", "orbax", "tp"])
 def test_ported_flags_work(corpus, tmp_path, capsys, flags):
     """Flags that raised before their slice was ported: `--fsdp` on one
     process has nothing to shard and trains; a coordinator without a
     process count stops with the JAX package's error; `orbax-async`
-    writes a committed step directory (tests/test_torch_parallel.py and
+    writes a committed step directory; `--tp 2` on one process stops
+    with the JAX package's divisibility error (tests/test_torch_parallel.py,
+    tests/test_torch_tensor_parallel.py and
     tests/test_torch_dcp_checkpoint.py run them in full)."""
     from dmcnet_tpu_torch.cli import train as train_cli
     from dmcnet_tpu_torch.train.checkpoints import dcp_checkpoint_committed
@@ -197,6 +199,11 @@ def test_ported_flags_work(corpus, tmp_path, capsys, flags):
         + flags
     if flags[0] == "--dist-coordinator":
         with pytest.raises(ValueError, match="without --dist-num-processes"):
+            train_cli.main(argv, input_size=SIZE)
+        return
+    if flags[0] == "--tp":
+        with pytest.raises(SystemExit, match="--tp 2 must divide the number "
+                           "of processes"):
             train_cli.main(argv, input_size=SIZE)
         return
     train_cli.main(argv, input_size=SIZE)
@@ -209,6 +216,27 @@ def test_ported_flags_work(corpus, tmp_path, capsys, flags):
         assert dcp_checkpoint_committed(ckpt + ".orbax")
         assert os.listdir(ckpt + ".orbax") == ["1"]
         assert not os.path.exists(ckpt)
+
+
+def test_test_cli_ignores_extra_gpus(corpus, tmp_path):
+    """A JAX-style `--gpus 0 1` (the JAX command parses it and never reads
+    it) scores on the first id, as the same command line without it."""
+    from dmcnet_tpu_torch.cli import test as test_cli
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+
+    model = train_cli.build_model(build_parser().parse_args(
+        _train_args(corpus, "unused")), 51, SIZE)
+    weights = str(tmp_path / "w.pth")
+    torch.save(model.state_dict(), weights)
+    got = []
+    for extra in ([], ["--gpus", "0", "1"]):
+        out = str(tmp_path / f"scores{len(got)}")
+        test_cli.main(_test_args(corpus, weights, out)
+                      + ["--device", "cpu"] + extra)
+        got.append(_scores(out + ".npz"))
+    np.testing.assert_array_equal(got[1][0], got[0][0])
+    assert got[1][1:] == got[0][1:]
 
 
 def _is_buffer(key):

@@ -154,18 +154,18 @@ def test_evaluate_cli_matches_jax(corpus, checkpoints, tmp_path,
 
 
 def test_refused_flags_raise(corpus, checkpoints, tmp_path):
-    """`--shard-time` raises naming its ROADMAP item.  `--load-weights`
+    """Flags that raised before their slice was ported.  `--load-weights`
     of the JAX package's file and of a step directory of the port's
-    `--ckpt-backend orbax`, which raised before their slice was ported,
-    score exactly as the port's torch file of the same weights."""
+    `--ckpt-backend orbax` score exactly as the port's torch file of the
+    same weights.  `--shard-time 1 --gpus 0 1 2` splits each 8-frame clip
+    over the largest count of the ids that divides it, 2 gloo processes,
+    and scores as the unsharded forward (float32, summed in another
+    order)."""
     from dmcnet_tpu_torch.models.i3d import get_symbol
     from dmcnet_tpu_torch.train.checkpoints import save_checkpoint_dcp
 
     jax_ckpt, port_ckpt = checkpoints
     base = FLAGS + _data_flags(corpus) + ["--device", "cpu"]
-    with pytest.raises(SystemExit, match="A item 9"):
-        port_cli.main(base + ["--load-weights", port_ckpt, "--shard-time",
-                              "1"])
     net, _ = get_symbol("I3D", modality="flow+mp4", num_classes=51,
                         arch_estimator="DenseNetTiny", input_size=64)
     net.load_state_dict(torch.load(port_ckpt, weights_only=True))
@@ -173,14 +173,17 @@ def test_refused_flags_raise(corpus, checkpoints, tmp_path):
     save_checkpoint_dcp(net, {"epoch": 1, "top1": 0.0, "stage2": True},
                         orbax_dir)
     scores = []
-    for weights in (port_ckpt, jax_ckpt, orbax_dir):
+    for weights, extra in ((port_ckpt, []), (jax_ckpt, []), (orbax_dir, []),
+                           (port_ckpt, ["--shard-time", "1", "--gpus", "0",
+                                        "1", "2"])):
         out = str(tmp_path / f"scores{len(scores)}")
         port_cli.main(base + ["--load-weights", weights, "--score-file",
-                              out])
+                              out] + extra)
         with np.load(out + ".npz") as z:
             scores.append(z["scores"])
     np.testing.assert_array_equal(scores[1], scores[0])
     np.testing.assert_array_equal(scores[2], scores[0])
+    np.testing.assert_allclose(scores[3], scores[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dropped", ["gen_flow_model.", "running_"])

@@ -349,9 +349,9 @@ def test_resume_epoch_across_epoch_thre(runs, corpus, tmp_path, monkeypatch,
 
 
 def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
-    """train_hmdb51 and train_ucf101 set the dataset default; flags of
-    slices not ported raise naming their ROADMAP item, and the directory
-    checkpoint backend, ported, reaches the loop; the TPU workarounds
+    """train_hmdb51 and train_ucf101 set the dataset default; the
+    parallel flags stop on one process where the JAX command does, and
+    `--fsdp` and the directory checkpoint backend reach the loop; the TPU workarounds
     parse and say they change nothing; a missing --pretrained_3d raises;
     without CUDA the default device raises."""
     got = {}
@@ -372,12 +372,17 @@ def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
         "--pretrained_3d", str(tmp_path / "missing.pth")])
     with pytest.raises(SystemExit, match="missing.pth does not exist"):
         train_i3d.init_pretrained(args, None)
-    for extra, item in ((["--tp", "2"], "A item 9"),
-                        (["--fsdp", "1"], "A item 9"),
-                        (["--gpus", "0,1"], "A item 9"),
-                        (["--dist-coordinator", "h:1"], "A item 9")):
-        with pytest.raises(SystemExit, match=item):
-            train_i3d.main(base + extra)
+    # the parallel flags are ported (tests/test_torch_i3d_parallel.py runs
+    # them): on one process --tp 2 and a coordinator without a process
+    # count stop with the JAX command's errors, --fsdp reaches the loop
+    with pytest.raises(SystemExit, match="--tp 2 must divide the number of "
+                       "processes"):
+        train_i3d.main(base + ["--tp", "2"])
+    with pytest.raises(ValueError, match="without --dist-num-processes"):
+        train_i3d.main(base + ["--dist-coordinator", "h:1"])
+    with pytest.raises(SystemExit, match="--fsdp across processes"):
+        train_i3d.main(base + ["--gpus", "0,1", "--fsdp", "1"])
+    train_i3d.main(base + ["--fsdp", "1"])
     train_i3d.main(base + ["--ckpt-backend", "orbax"])  # ported: no refusal
     assert got["backend"] == "orbax"
     for extra, match in ((["--modality", "rgb"], "flow\\+mp4"),

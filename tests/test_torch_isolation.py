@@ -53,7 +53,9 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.parallel",
             "dmcnet_tpu_torch.parallel.multihost",
             "dmcnet_tpu_torch.parallel.mesh",
-            "dmcnet_tpu_torch.parallel.fsdp"}
+            "dmcnet_tpu_torch.parallel.fsdp",
+            "dmcnet_tpu_torch.parallel.tensor",
+            "dmcnet_tpu_torch.parallel.temporal"}
 
 
 def test_port_imports_no_jax():

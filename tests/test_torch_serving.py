@@ -179,6 +179,7 @@ def test_predictor_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         DMCPredictor(num_class=NUM_CLASS, input_size=HW)
-    with pytest.raises(NotImplementedError):
-        DMCPredictor(num_class=NUM_CLASS, input_size=HW, device="cpu",
-                     mesh=object())
+    # a mesh of cards needs CUDA too: no fallback to the CPU
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DMCPredictor(num_class=NUM_CLASS, input_size=HW,
+                     mesh=["cuda:0", "cuda:1"])
