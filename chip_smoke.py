@@ -13,8 +13,10 @@ HMDB-51 recipe's width (examples/hmdb51_gen_flow/run.sh: batch 40, 3
 segments, mv, mv_minmaxnorm, input 224) through to logits, dmcnet and
 dmcnet_GAN training at that width, I3D whole-video evaluation at the width
 of examples/i3d/eval.sh (250-frame clips at 224², DenseNetTiny, 51
-classes), and I3D training at the width of examples/i3d/train.sh.
-Phases:
+classes), I3D training at the width of examples/i3d/train.sh, the
+parallel layer, pipeline-parallel scoring at the recipe's 250 clips a
+video, and the utilities (flow pictures, profiler traces, the command
+dispatcher).  Phases:
 
   1. device      card name, count, power limit (nvidia-smi); TF32 off
   2. build       nvcc of ops/csrc/backtrace_warp.cu, with ptxas' report
@@ -146,13 +148,33 @@ Phases:
                  against the unsharded logits, and a 1 x 2
                  tensor-parallel dmcnet step in float64 against the plain
                  step; B1 and B2 counted around the phase (0)
- 14. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
+ 14. pipeline    pipeline-parallel scoring at the width of the HMDB-51
+                 recipe's test command (25 segments x 10 crops = 250 clips
+                 a video at 224², DenseNetTiny + ResNet-18, 51 classes),
+                 every stage on cuda:0 (one card: the schedule's cost, no
+                 overlap between cards): the pp 2 and pp 4 logits of one
+                 video against the unpipelined classifier on the card and
+                 the CPU; the classifier's ms (CUDA events, median of 5)
+                 and peak memory at pp 1, 2 and 4; a float64 backward
+                 through the 2-stage schedule (remat off and on) against
+                 the serial gradients; cli.test --pp 2 (its stage devices,
+                 cli.common.first_devices, swapped to cuda:0 twice)
+                 against cli.test over 4
+                 synthetic videos; B1 and B2 counted around the phase (0)
+ 15. utils       cli.test --viz 1 on the card, its PNGs within one level of
+                 a CPU run's; the cli.train loop at the train phase's width
+                 (40 x 3 at 224²) with --profile-dir over a 10-batch epoch:
+                 one trace, its steps 2-7, its CUDA kernel events and the
+                 device's busy share over the traced window; python -m
+                 dmcnet_tpu_torch --help in a subprocess; B1 and B2 counted
+                 around the phase (0)
+ 16. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
 
 Any failure raises and exits non-zero.  The last lines are a `kernels` JSON
 object, a summary JSON object, the card's name and power limit, and
-`{"ok": true, "device": {...}}`.  Needs no network; takes about 4-5
+`{"ok": true, "device": {...}}`.  Needs no network; takes about 5-6
 minutes on an H100.
 """
 
@@ -256,6 +278,18 @@ I3D_CHECK_SIZE = 64
 I3D_LOOP_ITER = 2
 I3D_LOOP_FLAGS = ["--iter-size", str(I3D_LOOP_ITER), "--epoch-thre", "1",
                   "--end-epoch", "2", "--workers", "8"]
+# The pipeline phase: the scoring recipe's 25 segments x 10 crops, the
+# classifier at pp 1 and PP_STAGES timed PP_TIMED times; a float64 backward
+# through 2 stages at PP_GRAD_BATCH x PP_GRAD_SIZE² (the card may sum a
+# weight gradient's terms in any order: atol scales with the tensor's
+# largest |value|); cli.test --pp 2 over PP_VIDEOS videos.
+PP_SEGMENTS, PP_CROPS, PP_STAGES, PP_TIMED = 25, 10, (2, 4), 5
+PP_GRAD_BATCH, PP_GRAD_SIZE = 8, 64
+PP_F64_RTOL, PP_F64_ATOL = 1e-10, 1e-12
+PP_VIDEOS = 4
+# The utils phase: --viz over VIZ_VIDEOS videos; --profile-dir over one
+# epoch of PROFILE_BATCHES batches (steps 2-7 traced).
+VIZ_VIDEOS, PROFILE_BATCHES = 2, 10
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) by the type
 # the I3D step computes in.
 PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
@@ -1074,10 +1108,7 @@ def gan_phase(torch, bt, dev, gops, smi, workdir):
     ckpt = _reload_and_serve(torch, dev, train_cli, args, result, val_batch)
 
     # (f) cli.test --arch_d scores the checkpoint on the card and the CPU
-    test_list = os.path.join(workdir, "test_list.txt")
-    with open(test_list, "w") as f:
-        f.writelines(f"synthetic/{v}.avi 0 {v % NUM_CLASS}\n"
-                     for v in range(GAN_TEST_VIDEOS))
+    test_list = _test_list(workdir, GAN_TEST_VIDEOS)
     scored = []  # (G adversarial accuracy, scores, s) on the card, the CPU
     real_dataset = test_cli.CoviarDataset
     # the command's dataset over the synthetic GOPs (no decoder here)
@@ -1164,9 +1195,7 @@ def dist_phase(torch, bt, dev, gops, smi, workdir):
     from dmcnet_tpu_torch.cli import test as test_cli
     from dmcnet_tpu_torch.cli import train as train_cli
     from dmcnet_tpu_torch.cli.train_options import build_parser
-    from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
     from dmcnet_tpu_torch.models.tsn import segment_consensus
-    from dmcnet_tpu_torch.ops.backtrace import gop_mv_residual_cuda
     from dmcnet_tpu_torch.parallel import fsdp, mesh, multihost
     from dmcnet_tpu_torch.serving import DMCPredictor
     from dmcnet_tpu_torch.train import checkpoints as tckpt
@@ -1180,11 +1209,7 @@ def dist_phase(torch, bt, dev, gops, smi, workdir):
         "--model-prefix", os.path.join(workdir, "dist")])
     gan_args = build_parser(gan=True).parse_args(GAN_RECIPE + LOOP_FLAGS)
     pool, batch, val_batch = _recipe_setup(torch, dev, gops, args)
-    cache = {}
-    for k, gop in enumerate(pool):  # accumulated before the counts start
-        mv, res = gop_mv_residual_cuda(*gop, device=dev)
-        cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
-                    _encode_u8(res.cpu().numpy()))
+    cache = _filled_cache(torch, dev, pool)
     bt.backtrace_warp_batch.launches = 0
     bt.backtrace_gop_cells.launches = 0
 
@@ -2124,13 +2149,11 @@ def parallel_phase(torch, bt, dev, gops, smi, workdir):
     from dmcnet_tpu_torch.cli import train as train_cli
     from dmcnet_tpu_torch.cli import train_i3d
     from dmcnet_tpu_torch.cli.train_options import build_parser
-    from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
     from dmcnet_tpu_torch.data.video_iter import (
         I3DBatchAssembler,
         i3d_augment_batch,
     )
     from dmcnet_tpu_torch.models.i3d import get_symbol
-    from dmcnet_tpu_torch.ops.backtrace import gop_mv_residual_cuda
     from dmcnet_tpu_torch.parallel import fsdp, multihost, temporal, tensor
     from dmcnet_tpu_torch.parallel import mesh as pmesh
     from dmcnet_tpu_torch.train import checkpoints as tckpt
@@ -2177,11 +2200,7 @@ def parallel_phase(torch, bt, dev, gops, smi, workdir):
     # accumulated by B2 (the recipe's datasets accumulate on the host)
     targs = build_parser().parse_args(TRAIN_RECIPE + LOOP_FLAGS)
     tp_pool, batch, _ = _recipe_setup(torch, dev, gops, targs)
-    tp_cache = {}
-    for k, gop in enumerate(tp_pool):
-        mv, res = gop_mv_residual_cuda(*gop, device=dev)
-        tp_cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
-                       _encode_u8(res.cpu().numpy()))
+    tp_cache = _filled_cache(torch, dev, tp_pool)
     bt.backtrace_warp_batch.launches = 0
     bt.backtrace_gop_cells.launches = 0
 
@@ -2488,6 +2507,398 @@ def parallel_phase(torch, bt, dev, gops, smi, workdir):
             "phase_s": phase_s}
 
 
+def _filled_cache(torch, dev, pool):
+    """The synthetic datasets' cache with every pool GOP accumulated by
+    B2 and u8-encoded, filled before a phase sets the launch counts to 0:
+    the phase's own paths then launch what they launch."""
+    from dmcnet_tpu_torch.data.dmc_dataset import _encode_u8
+    from dmcnet_tpu_torch.ops.backtrace import gop_mv_residual_cuda
+
+    cache = {}
+    for k, gop in enumerate(pool):
+        mv, res = gop_mv_residual_cuda(*gop, device=dev)
+        cache[k] = (_encode_u8(mv.cpu().numpy(), MINMAX_BOUND),
+                    _encode_u8(res.cpu().numpy()))
+    return cache
+
+
+def _run_test_cli(test_cli, pool, cache, dev, flags, videos):
+    """`cli.test` with `flags` over `videos` synthetic videos (its
+    `CoviarDataset` swapped for the synthetic dataset: no decoder here);
+    returns (accuracy, scores (videos, 1, classes), s)."""
+    import contextlib
+    import io
+
+    real_dataset = test_cli.CoviarDataset
+    test_cli.CoviarDataset = lambda **kw: synthetic_dataset(
+        pool, videos, False, dev, cache, flow_from_mv=True,
+        num_segments=kw["num_segments"])
+    scores = flags[flags.index("--save-scores") + 1]
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            acc = test_cli.main(flags)
+        seconds = time.perf_counter() - t0
+    finally:
+        test_cli.CoviarDataset = real_dataset
+    with np.load(scores + ".npz", allow_pickle=True) as data:
+        return acc, np.stack([x[0] for x in data["scores"]]), seconds
+
+
+def _test_list(workdir, n):
+    import os
+
+    path = os.path.join(workdir, f"test_list_{n}.txt")
+    with open(path, "w") as f:
+        f.writelines(f"synthetic/{v}.avi 0 {v % NUM_CLASS}\n"
+                     for v in range(n))
+    return path
+
+
+def pipeline_phase(torch, bt, dev, gops, smi, workdir):
+    """14. Pipeline-parallel scoring at the HMDB-51 scoring recipe's width
+    (examples/hmdb51_gen_flow/run.sh's test command: 25 segments x 10
+    crops = 250 clips a video at 224², DenseNetTiny + ResNet-18, 51
+    classes): the pp 2 and pp 4 ResNet-18 logits of one video against the
+    unpipelined classifier on the card and on the CPU; ms and peak memory
+    of the classifier at pp 1, 2 and 4; a float64 backward through the
+    2-stage schedule against the serial gradients; `cli.test --pp 2`
+    against `cli.test` over 4 synthetic videos.  The card has no peers:
+    every stage lies on cuda:0, so the times are the schedule's cost
+    without overlap between cards.  B1 and B2 counted around the phase
+    (0).  Returns the numbers for the summary line."""
+    import copy
+    import os
+
+    from dmcnet_tpu_torch.cli import test as test_cli
+    from dmcnet_tpu_torch.data.dmc_dataset import (
+        BatchAssembler,
+        augment_eval_batch,
+    )
+    from dmcnet_tpu_torch.models.resnet import resnet18
+    from dmcnet_tpu_torch.models.tsn import DMCNet
+    from dmcnet_tpu_torch.parallel import (
+        make_pipeline_apply,
+        make_pp_resnet18,
+        make_stage_mesh,
+        resnet18_stage_split,
+    )
+    from dmcnet_tpu_torch.train.checkpoints import save_checkpoint
+
+    phase("pipeline")
+    t_phase = time.perf_counter()
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = _filled_cache(torch, dev, pool)
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+
+    # (a) one video's 250 generated cues, the classifier at pp 1, 2, 4
+    torch.manual_seed(0)
+    model = DMCNet(NUM_CLASS, num_segments=PP_SEGMENTS,
+                   arch_estimator="DenseNetTiny",
+                   gen_flow_or_delta=1).to(dev).eval()
+    ds = synthetic_dataset(pool, 1, False, dev, cache, flow_from_mv=True,
+                           num_segments=PP_SEGMENTS)
+    batch = augment_eval_batch(BatchAssembler(
+        ds, input_size=SIZE, test_crops=PP_CROPS).eval_batch([0]),
+        representation="mv", flow_ds_factor=16, input_size=SIZE,
+        device=dev)
+    clips = PP_SEGMENTS * PP_CROPS
+    cpu_base = copy.deepcopy(model.base_model).cpu()
+    with torch.inference_mode():
+        gen = model.generate(batch["mv"], batch["residual"])
+        check(tuple(gen.shape) == (clips, 2, SIZE, SIZE),
+              f"generated cues {tuple(gen.shape)}")
+        cpu_logits = cpu_base(gen.cpu())
+    del batch, cpu_base
+
+    def padded(x, n_stages):
+        """The clip batch wrapped to a multiple of the stage count, as
+        cli.test --pp pads it."""
+        n = x.shape[0]
+        return x[torch.arange(n + (-n) % n_stages, device=x.device) % n]
+
+    runs = {1: model.base_model}
+    for n in PP_STAGES:
+        runs[n] = make_pp_resnet18(model.base_model,
+                                   make_stage_mesh([str(dev)] * n),
+                                   n_microbatches=n)
+    times, logits = {}, {}
+    with torch.inference_mode():
+        for n, fn in runs.items():
+            x = padded(gen, n)
+            logits[n] = fn(x)[:clips]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            ms = median_ms(lambda: fn(x), PP_TIMED, torch)
+            times[n] = {"ms": ms, "resident_bytes": resident,
+                        "peak_bytes": torch.cuda.max_memory_allocated()}
+            del x
+    for n in PP_STAGES:
+        err_card = float((logits[n] - logits[1]).abs().max())
+        err_cpu = float((logits[n].cpu() - cpu_logits).abs().max())
+        print(f"  pp {n}: logits of {clips} clips max |diff| {err_card:.3g} "
+              f"from the unpipelined card, {err_cpu:.3g} from the CPU "
+              f"(rtol {LOGIT_RTOL}, atol {LOGIT_ATOL}, TF32 off)")
+        check(torch.allclose(logits[n], logits[1], rtol=LOGIT_RTOL,
+                             atol=LOGIT_ATOL), f"pp {n} != unpipelined")
+        check(torch.allclose(logits[n].cpu(), cpu_logits, rtol=LOGIT_RTOL,
+                             atol=LOGIT_ATOL), f"pp {n} != CPU")
+    check(bool(torch.isfinite(logits[1]).all()), "non-finite logits")
+    print(f"  classifier on one video ({clips} clips at {SIZE}², fp32, "
+          f"TF32 off, inference mode, median of {PP_TIMED} by CUDA events; "
+          f"every stage on cuda:0: no overlap between cards) on {smi}: "
+          + "; ".join(f"pp {n} {t['ms']:.3f} ms, peak "
+                      f"{t['peak_bytes'] / 2**30:.3f} GiB of which "
+                      f"{t['resident_bytes'] / 2**30:.3f} resident before"
+                      for n, t in times.items()))
+    del runs, logits, gen
+
+    # (b) float64 gradients through the 2-stage schedule, with and without
+    # remat, against the serial model's
+    torch.manual_seed(1)
+    net = resnet18(NUM_CLASS).to(dev, torch.float64).eval()
+    x = torch.randn(PP_GRAD_BATCH, 2, PP_GRAD_SIZE, PP_GRAD_SIZE,
+                    dtype=torch.float64, device=dev)
+    params = list(net.parameters())
+    want = torch.autograd.grad((net(x) ** 2).sum(), params)
+    worst = 0.0
+    for remat in (False, True):
+        pipe = make_pipeline_apply(resnet18_stage_split(net, 2),
+                                   make_stage_mesh([str(dev)] * 2),
+                                   remat=remat)
+        got = torch.autograd.grad((pipe(x) ** 2).sum(), params)
+        for g, w in zip(got, want):
+            tol = PP_F64_RTOL * w.abs() + PP_F64_ATOL * w.abs().max()
+            check(bool(((g - w).abs() <= tol).all()),
+                  f"f64 pipeline gradients (remat {remat}) != serial")
+            worst = max(worst, float(((g - w).abs()
+                                      / w.abs().max()).max()))
+    print(f"  float64 backward through 2 stages ({PP_GRAD_BATCH} x "
+          f"{PP_GRAD_SIZE}², remat off and on): all {len(params)} gradients "
+          f"within rtol {PP_F64_RTOL}, atol {PP_F64_ATOL} x each tensor's "
+          f"max of the serial model's; worst |diff| / max {worst:.3g}")
+    del net, x, want
+
+    # (c) cli.test --pp 2 against cli.test, stages on cuda:0 twice
+    weights = os.path.join(workdir, "pp.pth")
+    save_checkpoint(model, {"epoch": 1, "arch": "resnet18",
+                            "best_prec1": 0.0}, weights)
+    del model
+    flags = DIST_TEST_MODEL + [
+        "--test-list", _test_list(workdir, PP_VIDEOS), "--weights", weights,
+        "--test_segments", str(PP_SEGMENTS), "--test-crops", str(PP_CROPS),
+        "--input_size", str(SIZE), "--device", str(dev)]
+    plain = _run_test_cli(test_cli, pool, cache, dev, flags + [
+        "--save-scores", os.path.join(workdir, "pp1")], PP_VIDEOS)
+    card = "cuda:0" if dev.type == "cuda" else str(dev)
+    real_devices = test_cli.first_devices
+    test_cli.first_devices = lambda n, device, flag: [card] * n
+    try:
+        piped = _run_test_cli(test_cli, pool, cache, dev, flags + [
+            "--pp", "2", "--save-scores", os.path.join(workdir, "pp2")],
+            PP_VIDEOS)
+    finally:
+        test_cli.first_devices = real_devices
+    err = float(np.abs(piped[1] - plain[1]).max())
+    check(piped[1].shape == (PP_VIDEOS, 1, NUM_CLASS)
+          and np.isfinite(piped[1]).all(), "cli.test --pp 2 scores")
+    check(np.allclose(piped[1], plain[1], rtol=SERVE_RTOL, atol=SERVE_ATOL)
+          and piped[0] == plain[0], "cli.test --pp 2 != cli.test")
+    print(f"  cli.test --pp 2 over {PP_VIDEOS} synthetic videos x "
+          f"{PP_SEGMENTS} x {PP_CROPS} (stage devices swapped to "
+          f"{card} x 2: one card): scores max |diff| {err:.3g} from "
+          f"cli.test without --pp (rtol {SERVE_RTOL}, atol {SERVE_ATOL}), "
+          f"accuracy {piped[0]} and {plain[0]}; {piped[2]:.2f} s and "
+          f"{plain[2]:.2f} s")
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    print(f"  launches around the phase: {launches} (no TPU kernel lies on "
+          "the pipeline path)")
+    check(not any(launches.values()), "the pipeline phase launched B1/B2")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  pipeline phase {phase_s:.1f} s")
+    return {"classifier": times, "f64_worst": worst,
+            "cli_s": {"pp2": piped[2], "plain": plain[2]},
+            "launches": launches, "phase_s": phase_s}
+
+
+def read_png(path):
+    """(H, W, 3) uint8 of an 8-bit RGB PNG with unfiltered rows, as
+    `utils/viz.write_png` writes them (no imaging package on the card's
+    machine)."""
+    import struct
+    import zlib
+
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", body[:10])
+            check(depth == 8 and color == 2, f"{path}: not 8-bit RGB")
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    check(not rows[:, 0].any(), f"{path}: filtered rows")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _trace_numbers(path):
+    """(traced step numbers, the categories of their spans, kernel events,
+    device busy share, kernel share, window ms) of a Chrome trace: the
+    busy share is the union of the kernels' and copies' intervals over
+    the window from the first traced step's start to the last one's end,
+    the steps' host spans (`user_annotation`; a card's trace repeats each
+    on the device's timeline)."""
+    import collections
+    import json
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    marks = [e for e in events
+             if str(e.get("name", "")).startswith("ProfilerStep#")]
+    cats = collections.Counter(e.get("cat") for e in marks)
+    steps = [e for e in marks if e.get("cat") == "user_annotation"]
+    t0 = min(e["ts"] for e in steps)
+    t1 = max(e["ts"] + e["dur"] for e in steps)
+
+    def share(cats):
+        spans = sorted((max(e["ts"], t0), min(e["ts"] + e["dur"], t1))
+                       for e in events if e.get("cat") in cats
+                       and e.get("ph") == "X")
+        busy, end = 0.0, t0
+        for a, b in spans:
+            a = max(a, end)
+            if b > a:
+                busy += b - a
+                end = b
+        return busy / (t1 - t0)
+
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    return (sorted(int(e["name"].split("#")[1]) for e in steps), dict(cats),
+            kernels, share({"kernel", "gpu_memcpy", "gpu_memset"}),
+            share({"kernel"}), (t1 - t0) / 1e3)
+
+
+def utils_phase(torch, bt, dev, gops, smi, workdir):
+    """15. The last modules on the card: `cli.test --viz 1` against a CPU
+    run's pictures; the `cli.train` loop at the train phase's width (40 x
+    3 at 224²) with `--profile-dir` over a 10-batch epoch: the trace's
+    steps, its CUDA kernel events and the device's busy share over the
+    traced window; `python -m dmcnet_tpu_torch --help`.  B1 and B2
+    counted around the phase (0).  Returns the numbers for the summary
+    line."""
+    import os
+    import subprocess
+
+    from dmcnet_tpu_torch.cli import test as test_cli
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+
+    phase("utils")
+    t_phase = time.perf_counter()
+    pool = [gops[k][1:] for k in ("16x16 blocks", "8x8 blocks",
+                                  "4x4 blocks")]
+    cache = _filled_cache(torch, dev, pool)
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+
+    # (a) cli.test --viz 1 on the card and on the CPU
+    torch.manual_seed(0)
+    from dmcnet_tpu_torch.models.tsn import DMCNet
+    from dmcnet_tpu_torch.train.checkpoints import save_checkpoint
+
+    weights = os.path.join(workdir, "viz.pth")
+    save_checkpoint(DMCNet(NUM_CLASS, arch_estimator="DenseNetTiny",
+                           gen_flow_or_delta=1),
+                    {"epoch": 1, "arch": "resnet18", "best_prec1": 0.0},
+                    weights)
+    pictures = []
+    for device in (str(dev), "cpu"):
+        viz_dir = os.path.join(workdir, f"viz_{device.replace(':', '')}")
+        _run_test_cli(test_cli, pool, cache, dev, DIST_TEST_MODEL + [
+            "--test-list", _test_list(workdir, VIZ_VIDEOS),
+            "--weights", weights, "--test_segments", "3", "--test-crops",
+            "1", "--input_size", str(SIZE), "--viz", "1", "--viz-dir",
+            viz_dir, "--device", device, "--save-scores",
+            os.path.join(workdir, f"viz_{len(pictures)}")], VIZ_VIDEOS)
+        names = sorted(os.listdir(viz_dir))
+        check(names == [f"{i:05d}_{i}_gen_flow.png"
+                        for i in range(VIZ_VIDEOS)],
+              f"--viz pictures on {device}: {names}")
+        pictures.append([read_png(os.path.join(viz_dir, n)) for n in names])
+    diff = max(int(np.abs(a.astype(int) - b).max())
+               for a, b in zip(*pictures))
+    check(all(p.shape == (SIZE, SIZE, 3) and p.std() > 1.0
+              for p in pictures[0]), "--viz pictures are flat")
+    check(diff <= 1, f"--viz pictures card vs CPU differ by {diff} levels")
+    print(f"  cli.test --viz 1 over {VIZ_VIDEOS} synthetic videos: "
+          f"{VIZ_VIDEOS} {SIZE}x{SIZE} PNGs on the card and on the CPU, "
+          f"pixels at most {diff} level(s) apart")
+
+    # (b) the cli.train loop with --profile-dir over one 10-batch epoch
+    prof_dir = os.path.join(workdir, "prof")
+    args = build_parser().parse_args(TRAIN_RECIPE + [
+        "--epochs", "1", "--workers", "8", "--batch-size", str(BATCH),
+        "--profile-dir", prof_dir,
+        "--model-prefix", os.path.join(workdir, "prof_model")])
+    train_ds = synthetic_dataset(pool, PROFILE_BATCHES * BATCH, True, dev,
+                                 cache, flow_from_mv=True)
+    val_ds = synthetic_dataset(pool, BATCH, False, dev, cache,
+                               flow_from_mv=True)
+    t0 = time.perf_counter()
+    result = train_cli.train(args, train_ds, val_ds, device=dev,
+                             input_size=SIZE)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    files = os.listdir(prof_dir)
+    check(len(files) == 1, f"--profile-dir wrote {files}")
+    trace = os.path.join(prof_dir, files[0])
+    steps, cats, kernels, busy, kernel_busy, window_ms = \
+        _trace_numbers(trace)
+    check(steps == list(range(2, 8)), f"traced steps {steps}")
+    check(kernels > 0, "the trace holds no CUDA kernel event")
+    print(f"  cli.train --profile-dir, one epoch of {PROFILE_BATCHES} "
+          f"batches of {BATCH} x {SEGMENTS} at {SIZE}² in {loop_s:.2f} s: "
+          f"trace {os.path.getsize(trace) / 2**20:.1f} MiB, steps {steps} "
+          f"(ProfilerStep spans by category {cats}), "
+          f"{kernels} CUDA kernel events; over the traced window "
+          f"({window_ms:.1f} ms, {len(steps)} steps) the device is busy "
+          f"{busy * 100:.1f}% (kernels alone {kernel_busy * 100:.1f}%) on "
+          f"{smi}; batch time {result.epochs[0]['batch_time']:.4f} s "
+          "(average, host clock, profiler on for steps 2-7)")
+
+    # (c) the dispatcher
+    run = subprocess.run([sys.executable, "-m", "dmcnet_tpu_torch",
+                          "--help"], capture_output=True, text=True,
+                         timeout=300)
+    listed = [x.strip() for x in run.stdout.splitlines()[3:]]
+    check(run.returncode == 0 and len(listed) == 9 and "serve" in listed,
+          f"python -m dmcnet_tpu_torch --help: {run.returncode} "
+          f"{run.stdout[-300:]} {run.stderr[-300:]}")
+    print(f"  python -m dmcnet_tpu_torch --help: exit 0, commands "
+          f"{', '.join(listed)}")
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    print(f"  launches around the phase: {launches} (no TPU kernel lies on "
+          "these paths)")
+    check(not any(launches.values()), "the utils phase launched B1/B2")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  utils phase {phase_s:.1f} s")
+    return {"viz_max_diff": diff, "profile": {
+        "steps": steps, "kernel_events": kernels, "busy_share": busy,
+        "kernel_share": kernel_busy, "window_ms": window_ms,
+        "loop_s": loop_s}, "launches": launches, "phase_s": phase_s}
+
+
 def main():
     import torch
 
@@ -2741,8 +3152,10 @@ def main():
     i3d_train = in_workdir(i3d_train_phase, torch, bt, dev, gops, smi)
     dist_numbers = in_workdir(dist_phase, torch, bt, dev, gops, smi)
     parallel = in_workdir(parallel_phase, torch, bt, dev, gops, smi)
+    pipeline = in_workdir(pipeline_phase, torch, bt, dev, gops, smi)
+    utils = in_workdir(utils_phase, torch, bt, dev, gops, smi)
 
-    # 14. videos --------------------------------------------------------------
+    # 16. videos --------------------------------------------------------------
     phase("videos")
     from dmcnet_tpu_torch.codec.mpeg4 import (
         NativeCodecUnavailable,
@@ -2825,7 +3238,8 @@ def main():
                       "data_ms": data["times"], "train": train,
                       "gan": gan, "i3d": i3d, "i3d_train": i3d_train,
                       "dist": dist_numbers, "mesh": mesh,
-                      "parallel": parallel, "card": smi}))
+                      "parallel": parallel, "pipeline": pipeline,
+                      "utils": utils, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

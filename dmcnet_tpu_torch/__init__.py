@@ -28,13 +28,17 @@ package's module names so every counterpart can be found:
                   files, the JAX package's msgpack files, step directories
                   on torch.distributed.checkpoint)
   parallel/       process groups and per-rank batch rows, data parallelism
-                  with global-batch BatchNorm, FSDP2
-  utils/          JSON-lines metrics log
+                  with global-batch BatchNorm, FSDP2, tensor parallelism,
+                  time-sharded I3D evaluation, the GPipe schedule and the
+                  pipelined ResNet-18
+  utils/          JSON-lines metrics log, flow pictures (Middlebury wheel,
+                  PNG writer), torch.profiler traces and timers
   serving         DMCPredictor: compressed video in, action scores out
   cli/            serve (batch / stdin scoring), train, train_gan, test
                   (with the GAN's adversarial accuracy), combine,
                   evaluate_video_i3d, train_i3d (train_hmdb51,
-                  train_ucf101)
+                  train_ucf101); `python -m dmcnet_tpu_torch <command>`
+                  dispatches to them
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 CUDA and without an explicit device they raise.

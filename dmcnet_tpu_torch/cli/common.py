@@ -1,7 +1,7 @@
 """Helpers shared by the `train`, `train_i3d`, `test`, `serve` and
 `evaluate_video_i3d` commands: the class count of a dataset, the torch
-device of `--device` / `--gpus`, the refusal of flags whose slice is not
-ported yet, the placement of a model across processes, and the reference
+device of `--device` / `--gpus`, the devices of `--mesh-devices` and
+`--pp`, the placement of a model across processes, and the reference
 score dump."""
 
 import dataclasses
@@ -29,12 +29,17 @@ def device_for(args):
     return torch.device(args.device)
 
 
-def refuse_unported(refusals):
-    """SystemExit for the first (condition, flag, ROADMAP item) whose
-    condition holds: a flag of a slice not ported yet is never ignored."""
-    for bad, flag, item in refusals:
-        if bad:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP {item})")
+def first_devices(n, device, flag):
+    """The first `n` cards (`device` cuda), or `n` CPU replicas (`device`
+    cpu), for `flag`'s devices; more cards than are visible raises, with
+    no fallback."""
+    if torch.device(device).type == "cpu":
+        return ["cpu"] * n
+    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n > count:
+        raise SystemExit(f"{flag} {n}: only {count} CUDA devices are "
+                         "visible")
+    return [f"cuda:{i}" for i in range(n)]
 
 
 def save_scores_npz(path, outputs, labels, name_list):

@@ -28,7 +28,11 @@ import time
 
 import numpy as np
 
-from dmcnet_tpu_torch.cli.common import num_classes_for, save_scores_npz
+from dmcnet_tpu_torch.cli.common import (
+    first_devices,
+    num_classes_for,
+    save_scores_npz,
+)
 
 
 def build_parser():
@@ -178,17 +182,8 @@ def parse_inputs(args):
 
 
 def mesh_devices(n, device):
-    """The first `n` cards (`device` cuda), or `n` CPU replicas (`device`
-    cpu); more cards than are visible raises, with no fallback."""
-    import torch
-
-    if torch.device(device).type == "cpu":
-        return ["cpu"] * n
-    count = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if n > count:
-        raise SystemExit(f"--mesh-devices {n}: only {count} CUDA devices "
-                         "are visible")
-    return [f"cuda:{i}" for i in range(n)]
+    """The `--mesh-devices` replicas (`common.first_devices`)."""
+    return first_devices(n, device, "--mesh-devices")
 
 
 def main(argv=None):

@@ -15,13 +15,23 @@ a GAN checkpoint with its discriminator, built for `--input_size`, and
 prints the G adversarial accuracy: the share of generated cues the
 discriminator rates real, over every video's segments x crops (reference
 dmcnet_GAN test.py:158,184-192).  `--gpus` with several ids scores on
-the first, as the JAX command ignores the flag.  `--viz` and `--pp` belong
-to slices not ported yet and raise.
+the first, as the JAX command ignores the flag.
+
+`--pp N` (2 or 4) scores with the ResNet-18 backbone pipelined over N
+stage devices (`parallel/pp_resnet.py`): the first N cards, or N stages on
+the CPU with `--device cpu`; fewer visible cards raise.  The generator
+runs on the first stage's device, and each video's segments x crops clips
+stream through the stages in N microbatches, the clip batch padded by
+wrapping its indices when N does not divide it.  With `--plain 1` the
+modality clips are the pipeline's input.  `--viz 1` writes a Middlebury
+picture of each video's first generated cue into `--viz-dir`
+(`{index:05d}_{name}_gen_flow.png`, `utils/viz.py`).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -30,8 +40,8 @@ import torch
 
 from dmcnet_tpu_torch.cli.common import (
     device_for,
+    first_devices,
     num_classes_for,
-    refuse_unported,
     save_scores_npz,
 )
 from dmcnet_tpu_torch.data.dmc_dataset import (
@@ -87,17 +97,19 @@ def build_parser():
                         help='torch device to score on (cuda, cuda:N, cpu)')
     parser.add_argument('--gop', type=int, default=12)
     parser.add_argument('--viz', type=int, default=0,
-                        help='Middlebury images of the generated cue: not '
-                             'ported yet (ROADMAP A item 10); raises when '
-                             'set')
+                        help='write a Middlebury colour picture of each '
+                             'video\'s generated cue (its first clip) '
+                             'into --viz-dir')
     parser.add_argument('--viz-dir', type=str, default='./viz')
     parser.add_argument('--gen_flow_or_delta', type=int, default=0)
     parser.add_argument('--gen_flow_ds_factor', type=int, default=0)
     parser.add_argument('--att', type=int, default=0)
     parser.add_argument('--mv_minmaxnorm', type=int, default=0)
     parser.add_argument('--pp', type=int, default=0,
-                        help='pipeline-parallel backbone: not ported yet '
-                             '(ROADMAP A item 9); raises when > 1')
+                        help='pipeline-parallel stages of the ResNet-18 '
+                             'backbone (2 or 4): the scoring forward runs '
+                             'over the first N cards (N CPU stages with '
+                             '--device cpu), parallel/pp_resnet.py')
     parser.add_argument('--packed-gen', type=int, default=0,
                         help='space-to-depth factor of the JAX package\'s '
                              'packed dense estimators; the port scores the '
@@ -114,14 +126,21 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_unported([
-        (args.viz, "--viz", "A item 10 (utils/viz)"),
-        (args.pp > 1, "--pp", "A item 9 (parallel layer)"),
-    ])
-    if args.plain and (args.att or args.arch_d):
+    if args.plain and (args.att or args.arch_d or args.viz):
         raise SystemExit("--plain scores the bare TSN backbone (no "
-                         "generator, no --att, no --arch_d)")
+                         "generator, no --att, no --arch_d, no --viz)")
+    pp = args.pp > 1
+    if pp:
+        if args.arch != "resnet18":
+            raise SystemExit("--pp currently supports --arch resnet18")
+        if args.viz or args.arch_d or args.att:
+            raise SystemExit("--pp composes with the plain scoring path "
+                             "only (no --viz / --arch_d / --att)")
     device = device_for(args)
+    stage_devices = None
+    if pp:
+        stage_devices = first_devices(args.pp, device, "--pp")
+        device = torch.device(stage_devices[0])
     if args.packed_gen:
         print(f"--packed-gen {args.packed_gen}: the port scores the unpacked "
               "layout (packing is an exact reparameterization of it)")
@@ -168,22 +187,64 @@ def main(argv=None):
     net.to(device).eval()
 
     total_seg = args.test_segments * args.test_crops
+    if pp:
+        from dmcnet_tpu_torch.parallel import (
+            make_pp_resnet18,
+            make_stage_mesh,
+        )
+
+        pp_classify = make_pp_resnet18(net.base_model,
+                                       make_stage_mesh(stage_devices),
+                                       n_microbatches=args.pp)
+    if args.viz:
+        from dmcnet_tpu_torch.utils.viz import viz_flow, write_png
+
+        os.makedirs(args.viz_dir, exist_ok=True)
+
+    def forward_video(batch):
+        """-> (video scores (1, C), validity or None, first clip's cue or
+        None)."""
+        validity = gen0 = None
+        if pp:
+            if args.plain:   # the modality clips are the pipeline's input
+                x = batch[plain_key]
+                gen = x.reshape((-1,) + tuple(x.shape[-3:]))
+            else:
+                gen = net.generate(batch["mv"], batch["residual"])
+            n = gen.shape[0]
+            pad = (-n) % args.pp
+            if pad:  # the microbatch count must divide the clip batch;
+                # wrapping the indices pads fully even when n < pad
+                gen = gen[torch.arange(n + pad, device=gen.device) % n]
+            logits = pp_classify(gen)[:n]
+        elif args.plain:
+            logits = net(batch[plain_key])
+        else:
+            outs = net(batch["mv"], batch["residual"])
+            logits = outs[0]
+            if args.arch_d:
+                validity = outs[2]
+            if args.viz:
+                gen0 = outs[1][0]
+        return segment_consensus(logits, total_seg), validity, gen0
+
     output, video_labels = [], []
     g_adv_real, g_adv_rows = 0, 0
     proc_start_time = time.time()
     for i in range(len(ds)):
         batch = augment_eval_batch(asm.eval_batch([i]), **aug)
         with torch.no_grad():
-            if args.plain:
-                logits = net(batch[plain_key])
-            else:
-                outs = net(batch["mv"], batch["residual"])
-                logits = outs[0]
-                if args.arch_d:
-                    validity = outs[2]
-                    g_adv_real += int((validity.argmax(-1) == 1).sum())
-                    g_adv_rows += validity.shape[0]
-            scores = segment_consensus(logits, total_seg).cpu().numpy()
+            consensus, validity, gen0 = forward_video(batch)
+            scores = consensus.cpu().numpy()
+        if validity is not None:
+            g_adv_real += int((validity.argmax(-1) == 1).sum())
+            g_adv_rows += validity.shape[0]
+        if gen0 is not None:
+            # the reference renders flow pictures with --viz (test.py:117)
+            g = gen0.float().cpu().numpy()    # (2, H, W)
+            img = (viz_flow(g[0], g[1]) * 255).astype(np.uint8)
+            name = os.path.splitext(os.path.basename(ds.items[i].path))[0]
+            write_png(f"{args.viz_dir}/{i:05d}_{name}_gen_flow.png", img)
         label = int(batch["label"][0])
         output.append((scores, label))
         video_labels.append(label)

@@ -43,8 +43,14 @@ ranks (`parallel/tensor.py`, a (processes / N, N) mesh: the batch splits
 over the data rows), with `--fsdp` also FSDP2 over the data dim; it writes
 and resumes step directories only.  Rank 0 alone prints, logs and writes
 torch files; every rank writes its shards of a directory.  `--fsdp` on one
-process has nothing to shard and says so.  `--profile-dir` raises
-`SystemExit` naming its ROADMAP item.
+process has nothing to shard and says so.
+
+`--profile-dir DIR` traces training steps 2-7 of the first epoch (from
+step 0 in an epoch of fewer than 3 batches, to the epoch's end in one of
+fewer than 8) with `torch.profiler`, each step a `ProfilerStep#<step>`
+span, CUDA kernels included on a card, and writes a Chrome trace JSON
+into DIR (`utils/profiling.py`), as the JAX command traces its window
+with `jax.profiler`.
 """
 
 from __future__ import annotations
@@ -61,7 +67,6 @@ from dmcnet_tpu_torch.cli.common import (
     device_for,
     num_classes_for,
     place,
-    refuse_unported,
 )
 from dmcnet_tpu_torch.cli.train_options import build_parser
 from dmcnet_tpu_torch.data.dmc_dataset import (
@@ -101,6 +106,7 @@ from dmcnet_tpu_torch.train.optimizers import (
     step_decay_lr,
 )
 from dmcnet_tpu_torch.utils.metrics_log import MetricsLogger
+from dmcnet_tpu_torch.utils.profiling import start_trace, stop_trace
 
 SAVE_FREQ = 40
 PRINT_FREQ = 20
@@ -284,8 +290,20 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
             meters = {k: AverageMeter()
                       for k in ("batch_time", "data_time") + metric_keys}
             pending, data_times, batch_times = [], [], []
+            prof = None
             end = time.time()
             for i, raw in enumerate(loader):
+                if args.profile_dir and epoch == start_epoch:
+                    # steps 2-7: past the first steps' warm-up, short
+                    # enough to read (epochs shorter than 3 batches trace
+                    # from step 0)
+                    if i == min(2, batches_per_epoch - 1):
+                        prof = start_trace(device, first_step=i)
+                    elif i == 8 and prof is not None:
+                        _stop_profile(prof, args.profile_dir, device, say)
+                        prof = None
+                    elif prof is not None:
+                        prof.step()
                 data_times.append(time.time() - end)
                 meters["data_time"].update(data_times[-1])
                 batch = augment_train_batch(raw, **aug)
@@ -326,6 +344,8 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
                              batch_time=meters["batch_time"].avg,
                              data_time=meters["data_time"].avg, **extra)
             flush_pending(pending, meters)
+            if prof is not None:  # an epoch shorter than the window
+                _stop_profile(prof, args.profile_dir, device, say)
             result.epochs.append({"epoch": epoch,
                                   "data_time": meters["data_time"].avg,
                                   "batch_time": meters["batch_time"].avg,
@@ -349,6 +369,14 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
         mlog.close()
         wait_for_checkpoints()  # background writes commit before returning
     return result
+
+
+def _stop_profile(prof, logdir, device, say):
+    """Wait for the traced steps' work on `device`, stop `prof` and say
+    where its trace went."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    say(f"profiler trace written to {stop_trace(prof, logdir)}")
 
 
 def _save(args, model, optimizers, meta, is_best, rank, times):
@@ -423,10 +451,6 @@ def main(argv=None, gan=False, input_size=224):
     reference's fixed 224, and tests shrink it."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser(gan=gan).parse_args(argv)
-    refuse_unported([
-        (args.profile_dir is not None, "--profile-dir",
-         "A item 10 (utils/profiling)"),
-    ])
     spawn = args.gpus and len(args.gpus) > 1 and \
         args.dist_num_processes is None
     n_proc = len(args.gpus) if spawn else (args.dist_num_processes or 1)

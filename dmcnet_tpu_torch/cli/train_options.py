@@ -1,11 +1,8 @@
 """Training options — the port's copy of `dmcnet_tpu/cli/train_options.py`,
 flag-compatible with reference code/dmcnet/train_options.py:12-91 and,
 with `gan`, the dmcnet_GAN additions (train_options.py:37-38,74-77,88),
-plus `--device`.
-
-Flags of slices not ported yet (`--tp`, `--profile-dir`) are parsed, so
-the reference scripts still parse, and `cli/train.py` refuses them by name
-with their ROADMAP item.
+plus `--device`.  `cli/train.py`'s docstring says what the parallel
+flags (`--gpus`, `--dist-*`, `--fsdp`, `--tp`) and `--profile-dir` do.
 """
 
 import argparse
@@ -161,8 +158,9 @@ def build_parser(gan=False):
                              'batch splits over the rest); across '
                              'processes it needs --ckpt-backend orbax.')
     parser.add_argument('--profile-dir', type=str, default=None,
-                        help='trace of training steps: not ported yet '
-                             '(ROADMAP A item 10); raises when set.')
+                        help='write a torch.profiler Chrome trace of '
+                             'training steps 2-7 of the first epoch '
+                             'here.')
     parser.add_argument('--gop-cache-mb', type=int, default=128,
                         help='host GOP-decode LRU cache budget in MB '
                              '(per dataset).')

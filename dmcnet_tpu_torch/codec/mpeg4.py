@@ -104,6 +104,11 @@ def _lib():
         ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
         ctypes.c_char_p]
+    lib.cv_encode_named.restype = ctypes.c_int
+    lib.cv_encode_named.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.POINTER(ctypes.c_uint8),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int64, ctypes.c_char_p]
     lib.cv_transcode.restype = ctypes.c_int
     lib.cv_transcode.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
@@ -401,3 +406,18 @@ def encode_mpeg4(path, frames_bgr, gop_size=12, bit_rate=640_000,
         t, h, w, gop_size, bit_rate, container.encode())
     if rc != 0:
         raise IOError(f"mpeg4 encode failed with code {rc}")
+
+
+def encode_video(path, frames_bgr, codec="mpeg4", gop_size=12,
+                 bit_rate=640_000, container="avi"):
+    """Encode (T, H, W, 3) uint8 BGR frames with any named libavcodec
+    encoder (e.g. 'mpeg2video', 'mjpeg'), to make clips of other codecs for
+    the codec-generic frame decode without the ffmpeg CLI."""
+    frames_bgr = np.ascontiguousarray(frames_bgr, dtype=np.uint8)
+    t, h, w, _ = frames_bgr.shape
+    rc = _lib().cv_encode_named(
+        os.fspath(path).encode(), codec.encode(),
+        frames_bgr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        t, h, w, gop_size, bit_rate, container.encode())
+    if rc != 0:
+        raise IOError(f"{codec} encode failed with code {rc}")

@@ -1,1 +1,2 @@
-"""Utilities of the port: the JSON-lines metrics log."""
+"""Utilities of the port: the JSON-lines metrics log (`metrics_log`),
+flow pictures (`viz`) and profiling (`profiling`)."""

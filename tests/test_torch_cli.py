@@ -158,25 +158,25 @@ def test_port_train_test_combine(corpus, tmp_path, capsys):
     assert n == NVID and 0.0 <= fused <= 1.0
 
 
-@pytest.mark.parametrize("cli,flags,item", [
-    ("train", ["--profile-dir", "trace"], "A item 10"),
-    ("test", ["--viz", "1"], "A item 10"),
-    ("test", ["--pp", "2"], "A item 9"),
-])
-def test_unported_flags_raise(corpus, cli, flags, item):
-    """A flag of a later slice stops the command and names its ROADMAP
-    item; none is ignored."""
+@pytest.mark.parametrize("flags,message", [
+    (["--pp", "2", "--arch", "resnet34"], "--pp currently supports --arch "
+     "resnet18"),
+    (["--pp", "2", "--viz", "1"], "--pp composes with the plain scoring"),
+    (["--pp", "4", "--arch_d", "Discriminator"], "--pp composes with the "
+     "plain scoring"),
+    (["--pp", "2", "--att", "1"], "--pp composes with the plain scoring"),
+    (["--plain", "1", "--viz", "1"], "--plain scores the bare TSN backbone"),
+], ids=["pp_arch", "pp_viz", "pp_arch_d", "pp_att", "plain_viz"])
+def test_refused_flag_combinations(corpus, flags, message):
+    """The JAX test command's refusals (dmcnet_tpu/cli/test.py:113-115,
+    197-201): each combination stops the command before it reads a
+    video."""
     from dmcnet_tpu_torch.cli import test as test_cli
-    from dmcnet_tpu_torch.cli import train as train_cli
 
-    if cli == "train":
-        argv = _train_args(corpus, "unused") + flags
-        run = lambda: train_cli.main(argv)  # noqa: E731
-    else:
-        argv = _test_args(corpus, "unused", "unused") + flags
-        run = lambda: test_cli.main(argv)  # noqa: E731
-    with pytest.raises(SystemExit, match=item):
-        run()
+    argv = _test_args(corpus, "unused", "unused") + flags + [
+        "--device", "cpu"]   # a later --arch overrides the first
+    with pytest.raises(SystemExit, match=message):
+        test_cli.main(argv)
 
 
 @pytest.mark.parametrize("flags", [

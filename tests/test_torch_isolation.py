@@ -55,7 +55,13 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.parallel.mesh",
             "dmcnet_tpu_torch.parallel.fsdp",
             "dmcnet_tpu_torch.parallel.tensor",
-            "dmcnet_tpu_torch.parallel.temporal"}
+            "dmcnet_tpu_torch.parallel.temporal",
+            "dmcnet_tpu_torch.parallel.pipeline",
+            "dmcnet_tpu_torch.parallel.pp_resnet",
+            "dmcnet_tpu_torch.utils.viz",
+            "dmcnet_tpu_torch.utils.profiling",
+            "dmcnet_tpu_torch.codec.mpeg4",
+            "dmcnet_tpu_torch.__main__"}
 
 
 def test_port_imports_no_jax():
