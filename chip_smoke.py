@@ -32,17 +32,31 @@ dispatcher).  Phases:
                  small GOP vs the golden model; B2's own device time beside
                  the launch floor (a 1-element zero_() in the same queue),
                  its plain version's time and its bound
-  5. main path   DMCPredictor._pack_rows -> _gop_program on the card;
-                 launch counts read around the run; u8 outputs equal to the
-                 same program with the plain back-trace; logits vs a CPU
-                 run of the port; chunk time and clips/s; B1's own device
-                 time (queued launches), its plain version's time and its
-                 bound
+  5. main path   DMCPredictor._pack_rows -> _gop_program on the card,
+                 served by the default pack=True predictor (the folded
+                 bfloat16 forward: packed generator + PackedResNet18);
+                 launch counts read around that run; u8 outputs equal to
+                 the pack=False predictor's on the same arrays and to the
+                 program with the plain back-trace; pack=False logits vs a
+                 CPU run of the port (float32); pack=True logits vs
+                 pack=False on the card and pack=True on the CPU, within
+                 PACK_TOL; chunk time and clips/s of both (pack=False also
+                 with TF32) and each forward's stage breakdown; B1's own
+                 device time (queued launches), its plain version's time
+                 and its bound
  5b. mesh        DMCPredictor(mesh=[every visible card]) on the same
                  chunk: B1 launched once per card, u8 outputs bit-equal
                  and logits within rtol 1e-4, atol 2e-4 of the one-card
                  predictor's, both chunks' ms; serve --mesh-devices over 4
                  synthetic videos (the host gather swapped: no decoder)
+ 5c. packed      the packed layer alone: the generator over 192 clips at
+                 224² at s = 1, 2, 4 in bf16 and fp32, NCHW and
+                 channels_last; QuantizedPackedEstimator's int8 GEMM route
+                 bit-equal to its float64 route and timed beside the bf16
+                 packed generator; a dmcnet train step at the recipe's
+                 batch with --packed-gen 2 against 0 in fp32 and bf16,
+                 losses within the train phase's rtol in fp32 and
+                 PACKED_BF16_LOSS_RTOL in bf16
   6. codec       gop_mv_residual_cuda on 256x320, T=12 GOPs equal to the
                  plain codec.accumulate.gop_mv_residual on the card and to
                  the golden load_like_coviar_numpy; the cell-16, cell-8 and
@@ -209,6 +223,11 @@ SIZE, NUM_CLASS = 224, 51
 # Card vs CPU logits: float32 with TF32 off, but cuDNN and the CPU sum the
 # 20 convolutions in different orders (and may pick Winograd/FFT forms).
 LOGIT_RTOL = LOGIT_ATOL = 1e-3
+# The folded bfloat16 serving forward (pack=True) against the float32 one
+# and against itself on the CPU: max |diff| within PACK_TOL of the
+# reference's largest |logit| (bfloat16 keeps 8 significant bits, about
+# 0.4% a rounding, over the generator's 6 and ResNet-18's 20 layers).
+PACK_TOL = 2e-2
 # Serving over several cards against one (tests/test_torch_serving.py's).
 SERVE_RTOL, SERVE_ATOL = 1e-4, 2e-4
 # The HMDB-51 recipe's data-layer width (examples/hmdb51_gen_flow/run.sh).
@@ -228,6 +247,12 @@ TRAIN_RECIPE = ["--data-name", "hmdb51", "--representation", "mv",
                 "--gen_flow_or_delta", "1", "--lr", "0.01", "--lr-mse", "1",
                 "--lr-steps", "55", "110", "165", "--lr-decay", "0.25"]
 TRAIN_LOSS_RTOL = 1e-4
+# --packed-gen 2 against 0 under bf16 autocast: the packed and unpacked
+# convolutions sum in other orders, so the generator's bf16 outputs (8
+# significant bits) round apart and ResNet-18 carries that into the
+# classification loss: 9.1e-5 apart at 40 x 3 on an H100 (PERF.md §6).
+# float32 steps keep TRAIN_LOSS_RTOL.
+PACKED_BF16_LOSS_RTOL = 1e-3
 TRAIN_PARAM_RTOL, TRAIN_PARAM_ATOL = 5e-4, 5e-6
 TRAIN_TIMED_STEPS = 5
 LONG_EPOCH_BATCHES = 8
@@ -2017,7 +2042,8 @@ def mesh_phase(torch, bt, pred, rows, outputs, cards, smi, workdir):
     times = {"one_card_ms": host_ms(lambda: chunk(pred), 10, torch),
              "mesh_ms": host_ms(lambda: chunk(mesh_pred), 10, torch)}
     print(f"  chunk ({G} GOPs, {G * PICKS} clips; GOP rows packed, to the "
-          f"card(s), logits back; host clock, median of 10, fp32) on {smi}: "
+          f"card(s), logits back; host clock, median of 10, pack=True) on "
+          f"{smi}: "
           f"one card {times['one_card_ms']:.3f} ms, mesh of {count} "
           f"{times['mesh_ms']:.3f} ms")
 
@@ -2058,6 +2084,148 @@ def mesh_phase(torch, bt, pred, rows, outputs, cards, smi, workdir):
           f"predictor's within rtol {SERVE_RTOL}, atol {SERVE_ATOL}")
     return {"times": times, "launches": launches,
             "serve_launches": serve_launches}
+
+
+def packed_phase(torch, bt, dev, gops, smi, workdir):
+    """5c. The packed layer on its own: the generator over the main path's
+    192 clips at 224² at s = 1, 2, 4 in bf16 and fp32, NCHW and
+    channels_last (the serving folds on, output packed), each within
+    PACK_TOL of s = 1 in fp32; `QuantizedPackedEstimator`'s int8 route (an
+    int8 GEMM) bit-equal to its float64 route on 8 clips, within 5% of the
+    float32 generator, and timed beside the bf16 packed generator on the
+    same normalized input; one dmcnet train step at the HMDB-51 recipe's
+    batch (40 x 3 at 224²) with --packed-gen 2 against 0, their losses
+    within TRAIN_LOSS_RTOL in fp32 and PACKED_BF16_LOSS_RTOL in bf16.  B1
+    counted around it (0; B2 launches only where the synthetic datasets
+    accumulate their GOPs).  Returns the numbers."""
+    import os
+
+    from dmcnet_tpu_torch.cli import train as train_cli
+    from dmcnet_tpu_torch.cli.train_options import build_parser
+    from dmcnet_tpu_torch.ops import packed_generator as pg
+    from dmcnet_tpu_torch.serving import DMCPredictor
+    from dmcnet_tpu_torch.train import engine
+    from dmcnet_tpu_torch.train import optimizers as topt
+
+    phase("packed")
+    t_phase = time.perf_counter()
+    bt.backtrace_warp_batch.launches = 0
+    bt.backtrace_gop_cells.launches = 0
+    n = G * PICKS
+    # the main path's weights (seed 0) and serving folds
+    pred = DMCPredictor(num_class=NUM_CLASS, input_size=SIZE, device=dev,
+                        seed=0)
+    gen = pred.model.gen_flow_model
+    affine = pred.packed[0].input_affine
+    rng = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 256, (n, 5, SIZE, SIZE), device=dev,
+                        generator=rng).float()
+
+    # (a) the generator's layouts
+    sweep, ref = {}, None
+    print(f"  packed generator, {n} clips at {SIZE}², input_affine and "
+          f"fuse_mv_delta on, output packed (median ms of 5, CUDA events) "
+          f"on {smi}:")
+    for s_ in (1, 2, 4):
+        for dt_name, dt in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            for fmt_name, fmt in (("nchw", torch.contiguous_format),
+                                  ("channels_last", torch.channels_last)):
+                m = pg.PackedDenseEstimator(
+                    gen, s=s_, dtype=dt, packed_output=True,
+                    fuse_mv_delta=True, input_affine=affine,
+                    memory_format=fmt).to(dev)
+                x = raw.to(dt)
+                with torch.inference_mode():
+                    out = pg.depth_to_space(m(x), s_).float()
+                    if ref is None:
+                        ref = out   # s = 1, fp32, NCHW
+                    err = float((out - ref).abs().max())
+                    scale = float(ref.abs().max())
+                    check(err <= PACK_TOL * scale,
+                          f"generator s={s_} {dt_name} {fmt_name} differs "
+                          f"by {err}")
+                    ms = median_ms(lambda: m(x), 5, torch)
+                key = f"s{s_}_{dt_name}_{fmt_name}"
+                sweep[key] = {"ms": ms, "max_abs_diff": err}
+                print(f"    s={s_} {dt_name} {fmt_name}: {ms:.3f} ms "
+                      f"({n / ms * 1e3:.1f} clips/s); max |diff| from s=1 "
+                      f"fp32 NCHW {err:.3g} (max |cue| {scale:.3g})")
+                del m, out
+    del ref
+
+    # (b) the int8 estimator on the normalized input
+    scale_t = torch.as_tensor(np.asarray(affine[0], np.float32), device=dev)
+    shift_t = torch.as_tensor(np.asarray(affine[1], np.float32), device=dev)
+    norm = raw * scale_t[:, None, None] + shift_t[:, None, None]
+    quant = pg.QuantizedPackedEstimator(gen, norm[:8], s=2).to(dev)
+    bf16_gen = pg.PackedDenseEstimator(gen, s=2, dtype=torch.bfloat16).to(
+        dev)
+    with torch.inference_mode():
+        small = norm[:8]
+        q_gemm = quant(small)
+        q_f64 = quant(small, int_conv=pg.int_conv3x3_f64)
+        check(torch.equal(q_gemm, q_f64),
+              "the int8 GEMM route != the float64 route")
+        want = gen(small)
+        rel = {"int8": float((q_gemm - want).abs().mean()
+                             / want.abs().mean()),
+               "bf16": float((bf16_gen(small).float() - want).abs().mean()
+                             / want.abs().mean())}
+        check(rel["int8"] < 0.05, f"int8 generator {rel['int8']:.4f} from "
+              "float32")
+        norm_bf16 = norm.to(torch.bfloat16)
+        quant_ms = {"int8_ms": median_ms(lambda: quant(norm), 5, torch),
+                    "bf16_ms": median_ms(lambda: bf16_gen(norm_bf16), 5,
+                                         torch)}
+    print(f"  QuantizedPackedEstimator (s=2): int8 GEMM route bit-equal to "
+          f"the float64 route on 8 clips; mean relative error from float32 "
+          f"{rel['int8']:.4f} (bf16 packed {rel['bf16']:.4f}); {n} clips "
+          f"int8 {quant_ms['int8_ms']:.3f} ms, bf16 packed "
+          f"{quant_ms['bf16_ms']:.3f} ms (median of 5)")
+    del norm, norm_bf16, raw, quant, bf16_gen, pred
+
+    # (c) a dmcnet train step with --packed-gen 2 against 0
+    argv = TRAIN_RECIPE + ["--model-prefix", os.path.join(workdir, "m")]
+    args = {s_: build_parser().parse_args(argv + ["--packed-gen", s_])
+            for s_ in ("0", "2")}
+    _, batch, _ = _recipe_setup(torch, dev, gops, args["0"])
+    train_steps = {}
+    for label, bf16 in (("fp32", False), ("bf16", True)):
+        row, losses = {}, {}
+        for s_, a in args.items():
+            model = train_cli.build_model(a, NUM_CLASS, SIZE).to(dev)
+            opts = topt.make_optimizers(model, a.lr_cls_mult, a.lr_mse_mult)
+            topt.adjust_learning_rate(opts, a.lr, a.weight_decay)
+            step = engine.make_train_step(
+                model, *opts, num_segments=SEGMENTS, lr_cls_w=a.lr_cls,
+                lr_mse_w=a.lr_mse, loss_mse=a.loss_mse, bf16=bf16)
+            losses[s_] = {k: float(v) for k, v in step(batch, True).items()
+                          if k.startswith("loss")}
+            row[f"packed_gen_{s_}_ms"] = median_ms(
+                lambda: step(batch, True), TRAIN_TIMED_STEPS, torch)
+            del model, opts, step
+        rtol = PACKED_BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
+        for k, w in losses["0"].items():
+            g_ = losses["2"][k]
+            check(abs(g_ - w) <= rtol * abs(w),
+                  f"--packed-gen 2 {label} {k} {g_} != --packed-gen 0 {w}")
+        row["losses"] = losses
+        train_steps[label] = row
+        print(f"  train step {BATCH} x {SEGMENTS} at {SIZE}², {label}: "
+              f"--packed-gen 0 {row['packed_gen_0_ms']:.3f} ms, 2 "
+              f"{row['packed_gen_2_ms']:.3f} ms (median of "
+              f"{TRAIN_TIMED_STEPS}); losses " + ", ".join(
+                  f"{k} {losses['0'][k]:.7f} / {losses['2'][k]:.7f}"
+                  for k in losses["0"])
+              + f" (rtol {rtol})")
+    launches = {"backtrace_warp_batch": bt.backtrace_warp_batch.launches,
+                "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
+    phase_s = time.perf_counter() - t_phase
+    print(f"  launches in the phase {launches}; packed phase {phase_s:.1f} s")
+    return {"generator": sweep, "quantized": {**quant_ms, "rel_err": rel},
+            "train_step": train_steps, "launches": launches,
+            "phase_s": phase_s}
 
 
 def _gloo_pair_worker(rank, port, workdir, device="cuda"):
@@ -3005,10 +3173,16 @@ def main():
     # 5. main path ----------------------------------------------------------
     phase("main path")
     t0 = time.perf_counter()
+    # the default predictor serves the folded bfloat16 forward (pack=True);
+    # `unpacked` serves the float32 one on the same weights and arrays
     pred = DMCPredictor(num_class=NUM_CLASS, arch="resnet18",
                         arch_estimator="DenseNetTiny", gen_flow_or_delta=1,
                         mv_minmaxnorm=1, input_size=SIZE, device="cuda",
                         seed=0)
+    check(pred.packed is not None and pred.packed_cls is not None,
+          "the default predictor is not packed")
+    unpacked = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
+                            input_size=SIZE, pack=False, device="cuda")
     rows = []
     pick = np.unique(np.round(np.linspace(1, T - 1, PICKS)).astype(int))
     for _ in range(G):
@@ -3021,14 +3195,16 @@ def main():
                      pick))
     arrays = pred._pack_rows(rows, G, T, H, W, CELL, PICKS)
     fn = pred._gop_program(G, T, H, W, CELL, PICKS)
-    print(f"  set-up (model, {G} synthetic GOPs) "
+    u_fn = unpacked._gop_program(G, T, H, W, CELL, PICKS)
+    print(f"  set-up (models, {G} synthetic GOPs) "
           f"{time.perf_counter() - t0:.2f} s")
 
     bt.backtrace_warp_batch.launches = 0
     logits, mv_u8, res_u8 = fn(*pred._to_device(arrays))
     torch.cuda.synchronize()
     launches = bt.backtrace_warp_batch.launches
-    print(f"  main path: backtrace_warp_batch launches = {launches}")
+    print(f"  main path (pack=True): backtrace_warp_batch launches = "
+          f"{launches}")
     check(launches >= 1, "the main path did not launch backtrace_warp")
     check(tuple(logits.shape) == (G * PICKS, NUM_CLASS),
           f"logits shape {tuple(logits.shape)}")
@@ -3037,54 +3213,80 @@ def main():
           and tuple(res_u8.shape) == (G, PICKS, SIZE, SIZE, 3),
           "u8 output shapes")
 
+    u_logits, u_mv, u_res = u_fn(*unpacked._to_device(arrays))
+    check(torch.equal(u_mv, mv_u8) and torch.equal(u_res, res_u8),
+          "mv_u8/res_u8 differ between pack=True and pack=False")
     plain = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
-                         input_size=SIZE, device="cuda",
+                         input_size=SIZE, pack=False, device="cuda",
                          backtrace_impl=bt.backtrace_warp_batch_ref)
     p_logits, p_mv, p_res = plain._gop_program(G, T, H, W, CELL, PICKS)(
         *plain._to_device(arrays))
     check(torch.equal(p_mv, mv_u8) and torch.equal(p_res, res_u8),
           "mv_u8/res_u8 differ from the plain back-trace program")
-    print("  mv_u8 and res_u8 equal the plain back-trace program's; logits "
-          f"max diff {float((p_logits - logits).abs().max()):.3g}")
+    print("  mv_u8 and res_u8 of pack=True and pack=False equal the plain "
+          "back-trace program's; pack=False logits max diff "
+          f"{float((p_logits - u_logits).abs().max()):.3g}")
 
     g_cpu = 4
+    cpu_arrays = pred._pack_rows(rows[:g_cpu], g_cpu, T, H, W, CELL, PICKS)
     cpu = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
-                       input_size=SIZE, device="cpu")
+                       input_size=SIZE, pack=False, device="cpu")
     c_logits, c_mv, c_res = cpu._gop_program(g_cpu, T, H, W, CELL, PICKS)(
-        *cpu._to_device(cpu._pack_rows(rows[:g_cpu], g_cpu, T, H, W, CELL,
-                                       PICKS)))
+        *cpu._to_device(cpu_arrays))
     check(torch.equal(c_mv, mv_u8[:g_cpu].cpu())
           and torch.equal(c_res, res_u8[:g_cpu].cpu()),
           "u8 outputs differ from the CPU run")
-    gpu_rows = logits[:g_cpu * PICKS].cpu()
+    gpu_rows = u_logits[:g_cpu * PICKS].cpu()
     logit_err = float((gpu_rows - c_logits).abs().max())
-    print(f"  logits vs CPU run ({g_cpu * PICKS} rows): max |diff| = "
-          f"{logit_err:.3g}, max |logit| = "
+    print(f"  pack=False logits vs CPU run ({g_cpu * PICKS} rows): max |diff| "
+          f"= {logit_err:.3g}, max |logit| = "
           f"{float(c_logits.abs().max()):.3g} (rtol={LOGIT_RTOL}, "
           f"atol={LOGIT_ATOL}, TF32 off)")
     check(torch.allclose(gpu_rows, c_logits, rtol=LOGIT_RTOL,
                          atol=LOGIT_ATOL), "card logits != CPU logits")
 
-    def time_chunks(n=20, warm=3):
+    # pack=True in bfloat16: against pack=False on the card and pack=True
+    # on the CPU, each within PACK_TOL of the reference's largest |logit|
+    cpu_packed = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
+                              input_size=SIZE, device="cpu")
+    cp_logits = cpu_packed._gop_program(g_cpu, T, H, W, CELL, PICKS)(
+        *cpu_packed._to_device(cpu_arrays))[0]
+    pack_err = {}
+    for name, got, want in (
+            ("pack=True vs pack=False on the card", logits, u_logits),
+            ("pack=True card vs CPU", logits[:g_cpu * PICKS].cpu(),
+             cp_logits)):
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        pack_err[name] = {"max_abs_diff": err, "max_abs_logit": scale}
+        print(f"  {name}: max |diff| {err:.4g}, max |logit| {scale:.4g} "
+              f"(bound {PACK_TOL} x max |logit| = {PACK_TOL * scale:.4g})")
+        check(err <= PACK_TOL * scale, f"{name}: logits differ by {err}")
+
+    def time_chunks(fn, p, n=20, warm=3):
         out = []
         for i in range(warm + n):
             t0 = time.perf_counter()
-            fn(*pred._to_device(arrays))
+            fn(*p._to_device(arrays))
             torch.cuda.synchronize()
             if i >= warm:
                 out.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(out)
 
-    chunk_ms = time_chunks()
     clips = G * PICKS
-    print(f"  chunk ({G} GOPs, {clips} clips, host arrays -> logits): "
-          f"median {chunk_ms:.3f} ms over 20 chunks = "
-          f"{clips / chunk_ms * 1e3:.1f} clips/s (fp32, TF32 off)")
+    packed_chunk_ms = time_chunks(fn, pred)
+    chunk_ms = time_chunks(u_fn, unpacked)
+    print(f"  chunk ({G} GOPs, {clips} clips, host arrays -> logits; median "
+          f"of 20) on {smi}: pack=True (bf16, folded) {packed_chunk_ms:.3f} "
+          f"ms = {clips / packed_chunk_ms * 1e3:.1f} clips/s; pack=False "
+          f"{chunk_ms:.3f} ms = {clips / chunk_ms * 1e3:.1f} clips/s (fp32, "
+          "TF32 off)")
     torch.backends.cudnn.allow_tf32 = True
-    chunk_ms_tf32 = time_chunks()
+    chunk_ms_tf32 = time_chunks(u_fn, unpacked)
     torch.backends.cudnn.allow_tf32 = False
-    print(f"  same chunk with cuDNN TF32 on: median {chunk_ms_tf32:.3f} ms "
-          f"= {clips / chunk_ms_tf32 * 1e3:.1f} clips/s")
+    print(f"  same chunk pack=False with cuDNN TF32 on: median "
+          f"{chunk_ms_tf32:.3f} ms = {clips / chunk_ms_tf32 * 1e3:.1f} "
+          "clips/s")
 
     # where the chunk's time goes, layer by layer (CUDA events, medians)
     def host_to_device():
@@ -3099,19 +3301,34 @@ def main():
         res_n = ((res_flat.float() / 255.0 - 0.5)
                  / torch.as_tensor(IMAGENET_STD, device=dev)) \
             .permute(0, 3, 1, 2)
-        gen = pred.model.generate(mv_n, res_n)
+        gen = unpacked.model.generate(mv_n, res_n)
         stages = {
             "host_to_device": median_ms(host_to_device, 10, torch),
+            "gop_program": median_ms(lambda: u_fn(*dev_arrays), 10, torch),
+            "forward_u8": median_ms(
+                lambda: unpacked._forward_u8(mv_flat, res_flat), 10, torch),
+            "generator": median_ms(
+                lambda: unpacked.model.generate(mv_n, res_n), 10, torch),
+            "classifier": median_ms(
+                lambda: unpacked.model.classify(gen), 10, torch),
+        }
+        raw = torch.cat([mv_flat, res_flat], -1).permute(0, 3, 1, 2) \
+            .to(torch.bfloat16)
+        packed_gen = pred.packed[0](raw)
+        packed_stages = {
+            "host_to_device": stages["host_to_device"],
             "gop_program": median_ms(lambda: fn(*dev_arrays), 10, torch),
             "forward_u8": median_ms(
                 lambda: pred._forward_u8(mv_flat, res_flat), 10, torch),
-            "generator": median_ms(
-                lambda: pred.model.generate(mv_n, res_n), 10, torch),
-            "classifier": median_ms(
-                lambda: pred.model.classify(gen), 10, torch),
+            "packed_generator": median_ms(lambda: pred.packed[0](raw), 10,
+                                          torch),
+            "packed_resnet18": median_ms(
+                lambda: pred.packed_cls[0](packed_gen), 10, torch),
         }
-    print("  breakdown (median ms, fp32): " + ", ".join(
+    print("  breakdown pack=False (median ms, fp32): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
+    print("  breakdown pack=True (median ms, bf16): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in packed_stages.items()))
 
     cm_d, if_d = dev_arrays[:2]
     ifr_d = if_d.permute(0, 3, 1, 2).to(torch.int32).contiguous()
@@ -3144,6 +3361,7 @@ def main():
     mesh = in_workdir(mesh_phase, torch, bt, pred, rows,
                       (logits, mv_u8, res_u8),
                       [f"cuda:{i}" for i in range(count)], smi)
+    packed = in_workdir(packed_phase, torch, bt, dev, gops, smi)
     codec_times = codec_phase(torch, bt, dev, gops)
     data = data_phase(torch, bt, dev, gops, pred, rng)
     train = in_workdir(train_phase, torch, bt, dev, gops, smi)
@@ -3185,9 +3403,9 @@ def main():
                 encode_mpeg4(paths[-1], clip, gop_size=12,
                              bit_rate=2_000_000)
             bt.backtrace_warp_batch.launches = 0
-            scores = pred.predict_videos(paths, backend="device")
+            scores = unpacked.predict_videos(paths, backend="device")
             n = bt.backtrace_warp_batch.launches
-            host = pred.predict_videos(paths, backend="host")
+            host = unpacked.predict_videos(paths, backend="host")
         print(f"  predict_videos(2 clips, backend='device'): launches {n}")
         check(n >= 1, "predict_videos did not launch backtrace_warp")
         for s, hs in zip(scores, host):
@@ -3229,7 +3447,11 @@ def main():
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"chunk_ms": chunk_ms, "chunk_ms_tf32": chunk_ms_tf32,
-                      "stages_ms": stages, "clips_per_chunk": clips,
+                      "stages_ms": stages,
+                      "packed_chunk_ms": packed_chunk_ms,
+                      "packed_stages_ms": packed_stages,
+                      "pack_logit_err": pack_err, "packed": packed,
+                      "clips_per_chunk": clips,
                       "clips_per_s": clips / chunk_ms * 1e3,
                       "b1_median_ms": kernel_median_ms,
                       "b2_wrapper_ms": b2["wrapper_ms"],

@@ -8,7 +8,9 @@ The port's counterpart of `dmcnet_tpu/cli/serve.py`, flag for flag, plus
         --save-scores dmc_scores.npz --device cuda
 
 - native decode-once front-end, back-trace on the card from MV block lists
-  (the host entropy-decodes only), DenseNet generator + ResNet classifier;
+  (the host entropy-decodes only), DenseNet generator + ResNet classifier,
+  packed with the normalize and BN folded, in bfloat16 (`--no-pack`: the
+  float32 forward);
 - GOPs of many videos batched into fixed-size device programs
   (`predict_videos`);
 - the score dump is bit-compatible with reference `test.py:183-198`, so the
@@ -84,8 +86,8 @@ def build_parser():
                              'alone); N above the visible cards raises; '
                              'with --device cpu, N CPU replicas')
     parser.add_argument('--no-pack', action='store_true',
-                        help='accepted for compatibility: the port runs '
-                             'the unpacked float32 forward only')
+                        help='disable the packed generator/classifier '
+                             '(debugging): the unfolded float32 forward')
     parser.add_argument('--device', type=str, default='cuda',
                         help='torch device to serve on (cuda, cuda:N, cpu)')
     parser.add_argument('--save-scores', type=str, default=None,
@@ -204,7 +206,7 @@ def main(argv=None):
         arch_estimator=args.arch_estimator,
         gen_flow_or_delta=args.gen_flow_or_delta,
         mv_minmaxnorm=args.mv_minmaxnorm, input_size=args.input_size,
-        **where)
+        pack=not args.no_pack, **where)
 
     if args.warmup:
         def parse_geom(g):

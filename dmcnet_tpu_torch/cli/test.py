@@ -111,10 +111,9 @@ def build_parser():
                              'over the first N cards (N CPU stages with '
                              '--device cpu), parallel/pp_resnet.py')
     parser.add_argument('--packed-gen', type=int, default=0,
-                        help='space-to-depth factor of the JAX package\'s '
-                             'packed dense estimators; the port scores the '
-                             'unpacked layout whatever the value and says '
-                             'so')
+                        help='space-to-depth factor for the dense DMC '
+                             'estimators (exact reparameterization; same '
+                             'checkpoints as the unpacked layout)')
     parser.add_argument('--plain', type=int, default=0,
                         help='plain CoViAR scoring: the backbone '
                              'classifies the modality input directly (no '
@@ -141,9 +140,6 @@ def main(argv=None):
     if pp:
         stage_devices = first_devices(args.pp, device, "--pp")
         device = torch.device(stage_devices[0])
-    if args.packed_gen:
-        print(f"--packed-gen {args.packed_gen}: the port scores the unpacked "
-              "layout (packing is an exact reparameterization of it)")
     num_class = num_classes_for(args.data_name)
 
     ds = CoviarDataset(
@@ -179,7 +175,8 @@ def main(argv=None):
                          gen_flow_or_delta=args.gen_flow_or_delta,
                          gen_flow_ds_factor=args.gen_flow_ds_factor,
                          att=args.att, arch_d=args.arch_d,
-                         input_size=args.input_size)
+                         input_size=args.input_size,
+                         packed_gen=args.packed_gen)
     if args.weights:
         skipped, missing = load_reference_weights(net, args.weights)
         print(f"loaded weights {args.weights} (skipped {len(skipped)}, "

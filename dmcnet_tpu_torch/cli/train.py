@@ -124,7 +124,7 @@ def build_model(args, num_class, input_size=224):
                       gen_flow_or_delta=args.gen_flow_or_delta,
                       gen_flow_ds_factor=args.gen_flow_ds_factor,
                       att=args.att, arch_d=getattr(args, "arch_d", None),
-                      input_size=input_size)
+                      input_size=input_size, packed_gen=args.packed_gen)
 
 
 def make_datasets(args):
@@ -193,9 +193,6 @@ def train(args, train_ds, val_ds, *, device, input_size=224):
     gan = getattr(args, "arch_d", None) is not None
     num_class = num_classes_for(args.data_name)
     model = build_model(args, num_class, input_size).to(device)
-    if args.packed_gen:
-        say(f"--packed-gen {args.packed_gen}: the port trains the unpacked "
-            "layout (packing is an exact reparameterization of it)")
     if args.fsdp and not parallel:
         say("--fsdp 1 on one process: nothing to shard")
     tp = max(args.tp or 1, 1)

@@ -40,8 +40,8 @@ Differences from the JAX command:
     pads it to keep one compiled shape);
   * a `--pretrained_3d` or `--new_classifier` file that does not exist
     raises instead of being skipped;
-  * the TPU workarounds `--accum-chunk`, `--remat` and `--packed-gen` parse
-    and change nothing (accumulation is sequential here already).
+  * the TPU workarounds `--accum-chunk` and `--remat` parse and change
+    nothing (accumulation is sequential here already).
 
 Several processes (`parallel/`), as `cli.train`: `--dist-coordinator
 host:port --dist-num-processes N --dist-process-id R` starts rank R of N,
@@ -202,7 +202,10 @@ def build_parser(dataset_default="HMDB51"):
     p.add_argument('--bf16', type=int, default=0,
                    help='mixed-precision training (bfloat16 autocast; '
                         'params/BN stats/losses stay float32)')
-    p.add_argument('--packed-gen', type=int, default=0, help=_NOT_PORTED)
+    p.add_argument('--packed-gen', type=int, default=0,
+                   help='space-to-depth factor (e.g. 2) for the dense DMC '
+                        'estimators: exact packed reparameterization, same '
+                        'parameter tree/checkpoints; 0 = faithful layout')
     p.add_argument('--workers', type=int, default=8,
                    help='host loader threads (the reference hardcodes '
                         'DataLoader num_workers=8, iterator_factory.py:184)')
@@ -246,7 +249,8 @@ def build_model(args, num_classes, input_size=224):
         return get_symbol(  # (model, input config)
             args.network, modality=args.modality, num_classes=num_classes,
             arch_estimator=args.arch_estimator, arch_d=args.arch_d,
-            input_size=input_size, dropout_prob=args.drop_out)
+            input_size=input_size, dropout_prob=args.drop_out,
+            packed_gen=args.packed_gen)
 
 
 def init_pretrained(args, model):
@@ -557,8 +561,7 @@ def main(argv=None, dataset_default="HMDB51", input_size=224):
                            dataset_default=dataset_default,
                            input_size=input_size)
     for flag, value in (("--accum-chunk", args.accum_chunk),
-                        ("--remat", args.remat != "0"),
-                        ("--packed-gen", args.packed_gen)):
+                        ("--remat", args.remat != "0")):
         if value and (args.dist_process_id or 0) == 0:
             print(f"{flag}: {_NOT_PORTED}")
     device = device_for(args)

@@ -141,11 +141,11 @@ def build_parser(gan=False):
                              'BN statistics and losses in float32 (the '
                              'reference is float32 only).')
     parser.add_argument('--packed-gen', type=int, default=0,
-                        help='space-to-depth factor of the JAX package\'s '
-                             'packed dense estimators, an exact '
-                             'reparameterization for TPU lanes; the port '
-                             'runs the unpacked layout whatever the value '
-                             'and says so.')
+                        help='space-to-depth factor (e.g. 2) for the dense '
+                             'DMC estimators: an exact packed '
+                             'reparameterization of the same parameters; '
+                             'checkpoints stay interchangeable with the '
+                             'unpacked layout.  0 = faithful layout.')
     parser.add_argument('--fsdp', type=int, default=0,
                         help='shard parameters and optimizer moments over '
                              'the processes (FSDP2); across processes it '

@@ -20,14 +20,24 @@ with `load_state_dict` directly.  Families:
   * Tiny early fusion: separate 3x3 stems for MV (`conv_0_mv.0`) and
     residual (`conv_0_r.0`), merged by sum or stack, then the Tiny plan's
     last four dense stages (model.py:197-250).
+
+`packed=s` (s > 1, `--packed-gen s`) runs a dense estimator through the
+space-to-depth packed layout of `ops/packed_generator.py`, an exact
+reparameterization of the same parameters.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dmcnet_tpu_torch.models.layers import batch_norm, conv3x3
+from dmcnet_tpu_torch.ops.packed_generator import (
+    depth_to_space,
+    pack_conv3x3_torch,
+    space_to_depth,
+)
 
 _LEAKY_SLOPE = 0.1
 _CONTEXT_WIDTHS = (32, 128, 128, 96, 64, 32, 2)
@@ -82,10 +92,21 @@ class ContextNetworkAtt(nn.Module):
 
 
 class _DenseEstimator(nn.Module):
+    """Dense connectivity: each stage takes the concat of every earlier
+    activation and the input.
+
+    `packed=s` (s > 1) runs the same parameters through the packed layout:
+    each forward packs the weights with `pack_conv3x3_torch`, so gradients
+    reach the unpacked parameters, state_dict keys stay the same and
+    checkpoints are interchangeable; the result equals the unpacked path's
+    up to float round-off.  Inputs whose H or W does not divide by s take
+    the unpacked path."""
+
     widths = ()
 
-    def __init__(self, in_channels=5):
+    def __init__(self, in_channels=5, packed=0):
         super().__init__()
+        self.packed = packed
         c = in_channels
         for i, w in enumerate(self.widths):
             self.add_module(f"conv_{i}", nn.Sequential(conv3x3(c, w),
@@ -94,9 +115,25 @@ class _DenseEstimator(nn.Module):
         self.predict_flow = conv3x3(c, 2)
 
     def forward(self, x):
+        s = self.packed
+        if s > 1 and x.shape[2] % s == 0 and x.shape[3] % s == 0:
+            return self._packed(x, s)
         for i in range(len(self.widths)):
             x = torch.cat([getattr(self, f"conv_{i}")(x), x], dim=1)
         return self.predict_flow(x)
+
+    def _packed(self, x, s):
+        convs = [getattr(self, f"conv_{i}")[0]
+                 for i in range(len(self.widths))] + [self.predict_flow]
+        segments = [x.shape[1]]
+        h = space_to_depth(x, s)
+        for i, conv in enumerate(convs):
+            wp, bp = pack_conv3x3_torch(conv.weight, conv.bias, s, segments)
+            y = F.conv2d(h, wp, bp, padding=1)
+            if i < len(convs) - 1:
+                h = torch.cat([F.leaky_relu(y, _LEAKY_SLOPE), h], dim=1)
+                segments = [conv.out_channels] + segments
+        return depth_to_space(y, s)
 
 
 class EstimatorDenseNet(_DenseEstimator):
@@ -152,10 +189,11 @@ _ESTIMATORS = {
 }
 
 
-def make_estimator(arch_estimator, att=0, gen_flow_ds_factor=0):
+def make_estimator(arch_estimator, att=0, gen_flow_ds_factor=0, packed=0):
     """Estimator by reference name (model.py:311-325).  `att` selects
     ContextNetworkAtt; only the ContextNetwork family has an attention
-    head."""
+    head.  `packed`: the dense family's space-to-depth factor
+    (`_DenseEstimator`); the other families ignore it."""
     if arch_estimator == "ContextNetwork":
         cls = ContextNetworkAtt if att else ContextNetwork
         return cls(gen_flow_ds_factor=gen_flow_ds_factor)
@@ -163,8 +201,9 @@ def make_estimator(arch_estimator, att=0, gen_flow_ds_factor=0):
         raise ValueError(f"att=1 needs arch_estimator ContextNetwork, not "
                          f"{arch_estimator!r}")
     try:
-        return _ESTIMATORS[arch_estimator]()
+        cls = _ESTIMATORS[arch_estimator]
     except KeyError:
         raise ValueError(
             f"unknown arch_estimator {arch_estimator!r}; choose one of "
             f"{sorted(_ESTIMATORS) + ['ContextNetwork']}") from None
+    return cls(packed=packed) if issubclass(cls, _DenseEstimator) else cls()

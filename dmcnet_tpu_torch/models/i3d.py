@@ -27,8 +27,10 @@ temporal op.  Given a `parallel.temporal.TimeShard`, `features_to_logits`
 runs on one rank's frames of a clip split along T (`evaluate_video_i3d
 --shard-time`); without one it is the plain forward.
 
-The JAX package's TPU lowerings (`unroll_time`, `remat`, `packed_gen`) are
-not ported: they change neither parameters nor results.
+`packed_gen=s` runs a dense generator in the space-to-depth packed layout
+(`generators._DenseEstimator`), same parameters.  The JAX package's TPU
+lowerings `unroll_time` and `remat` are not ported: they change neither
+parameters nor results.
 """
 
 from __future__ import annotations
@@ -130,14 +132,16 @@ def mixed_width(plan):
 class I3D(nn.Module):
     """Inception-3D classifier with an optional embedded DMC generator
     (`arch_estimator`) and GAN discriminator (`arch_d`, built for frames of
-    `input_size`)."""
+    `input_size`); `packed_gen`, the dense generator's packing factor."""
 
     def __init__(self, num_classes, modality="rgb", arch_estimator=None,
-                 arch_d=None, input_size=224, dropout_prob=0.0):
+                 arch_d=None, input_size=224, dropout_prob=0.0,
+                 packed_gen=0):
         super().__init__()
         self.modality = modality
         if arch_estimator:
-            self.gen_flow_model = make_estimator(arch_estimator)
+            self.gen_flow_model = make_estimator(arch_estimator,
+                                                 packed=packed_gen)
         else:
             self.gen_flow_model = None
         if arch_d:
@@ -205,12 +209,13 @@ class I3D(nn.Module):
 
 
 def get_symbol(name, modality="rgb", num_classes=51, arch_estimator=None,
-               arch_d=None, input_size=224, dropout_prob=0.0):
+               arch_d=None, input_size=224, dropout_prob=0.0, packed_gen=0):
     """Factory and input config (reference network/symbol_builder.py:12-25,
     network/config.py:10-27: I3D mean = std = 0.5)."""
     if name.upper() != "I3D":
         raise ValueError(f"unknown network {name!r}")
     net = I3D(num_classes=num_classes, modality=modality,
               arch_estimator=arch_estimator, arch_d=arch_d,
-              input_size=input_size, dropout_prob=dropout_prob)
+              input_size=input_size, dropout_prob=dropout_prob,
+              packed_gen=packed_gen)
     return net, {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5]}

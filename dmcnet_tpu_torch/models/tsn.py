@@ -15,7 +15,9 @@ reconstruction loss only (model.py:352).  With one (the dmcnet_GAN
 variant) the gradient flows from the classifier into the generator
 (dmcnet_GAN/model.py:560), and the discriminator scores the cue, stacked
 with the real flow when one is given (dmcnet_GAN/model.py:553-561).  Train
-or eval mode is the module's own (`.train()` / `.eval()`).
+or eval mode is the module's own (`.train()` / `.eval()`).  `packed_gen=s`
+runs a dense estimator in the space-to-depth packed layout
+(`generators._DenseEstimator`), same parameters.
 """
 
 from __future__ import annotations
@@ -74,7 +76,8 @@ class DMCNet(nn.Module):
 
     def __init__(self, num_class, num_segments=1, arch="resnet18",
                  arch_estimator="DenseNetTiny", gen_flow_or_delta=0,
-                 gen_flow_ds_factor=0, att=0, arch_d=None, input_size=224):
+                 gen_flow_ds_factor=0, att=0, arch_d=None, input_size=224,
+                 packed_gen=0):
         super().__init__()
         self.num_class = num_class
         self.num_segments = num_segments
@@ -83,7 +86,8 @@ class DMCNet(nn.Module):
         self.att = att
         self.arch_d = arch_d
         self.gen_flow_model = make_estimator(arch_estimator, att,
-                                             gen_flow_ds_factor)
+                                             gen_flow_ds_factor,
+                                             packed=packed_gen)
         self.base_model = _backbone(arch, num_class, in_channels=2)
         if arch_d:
             self.discriminator = make_discriminator(arch_d, input_size)

@@ -10,10 +10,19 @@ averaged per video, TSN-style.
     predictor = DMCPredictor.from_checkpoint(ckpt, num_class=51)
     scores = predictor.predict_video("video.mp4")   # (num_class,)
 
-The forward is the JAX package's `pack=False` semantics in float32.  What
-the JAX code does only for the TPU is not carried over: frames are picked
-with an index gather (not a one-hot contraction), inputs move as separate
-tensors (not one flat u8 buffer), and nothing is compiled per shape.
+The forward is the JAX package's.  `pack=True` (the default) serves its
+folded forward: for a dense estimator with ResNet-18, the u8 normalize
+(x/255 - 0.5)/std is folded into the generator's weights (`input_affine`)
+and the `+mv` delta fused into `predict_flow` (`fuse_mv_delta`), the
+generator's packed output feeds `ops.packed_resnet.PackedResNet18` (a
+packed stem, inference BN folded), and both run in bfloat16 on the raw u8
+values, exact in bfloat16 below 256; with another classifier only the
+generator is packed, in bfloat16, followed by the float32 `+mv` and the
+model's classifier; any other estimator serves the unfolded forward.
+`pack=False` is the unfolded float32 forward.  What the JAX code does only
+for the TPU is not carried over: frames are picked with an index gather
+(not a one-hot contraction), inputs move as separate tensors (not one flat
+u8 buffer), and nothing is compiled per shape.
 
 Several cards (`mesh=[device, ...]`, the JAX package's 1-D serving mesh):
 the predictor holds a replica of the model on each device, splits each GOP
@@ -38,8 +47,11 @@ from dmcnet_tpu_torch import resolve_device
 from dmcnet_tpu_torch.codec.host_accumulate import gop_mv_residual_u8
 from dmcnet_tpu_torch.codec.mpeg4 import shared_reader_cache
 from dmcnet_tpu_torch.data.transforms import IMAGENET_STD, MEAN_STD
+from dmcnet_tpu_torch.models.generators import _DenseEstimator
 from dmcnet_tpu_torch.models.tsn import DMCNet
 from dmcnet_tpu_torch.ops.backtrace import backtrace_warp_batch
+from dmcnet_tpu_torch.ops.packed_generator import PackedDenseEstimator
+from dmcnet_tpu_torch.ops.packed_resnet import PackedResNet18
 
 
 class DMCPredictor:
@@ -51,10 +63,12 @@ class DMCPredictor:
 
     def __init__(self, state_dict=None, num_class=51, arch="resnet18",
                  arch_estimator="DenseNetTiny", gen_flow_or_delta=1,
-                 mv_minmaxnorm=1, input_size=224, mesh=None,
+                 mv_minmaxnorm=1, input_size=224, pack=True, mesh=None,
                  backtrace_impl=None, device=None, seed=0):
         """`state_dict`: the port's (or a reference) DMCNet state_dict;
-        None keeps the random initialisation drawn from `seed`.
+        None keeps the random initialisation drawn from `seed`.  `pack`:
+        serve the folded bfloat16 forward (module docstring), its packed
+        modules built once for each device.
         `mesh`: a sequence of devices to serve over (a replica on each;
         `device` is then its first); cards need CUDA, with no fallback.
         `backtrace_impl` replaces `backtrace_warp_batch` (the kernel on
@@ -83,6 +97,26 @@ class DMCPredictor:
             copy.deepcopy(self.model).to(d) for d in self.mesh[1:]]
         self.input_size = input_size
         self.mv_minmaxnorm = mv_minmaxnorm
+        self.gen_flow_or_delta = gen_flow_or_delta
+        self.packed = self.packed_cls = None   # per device, when packing
+        if pack and isinstance(self.model.gen_flow_model, _DenseEstimator):
+            full = arch == "resnet18"
+            affine = None
+            if full:
+                # the normalize of _forward_u8, folded into the weights
+                affine = (np.concatenate([[1.0 / (255.0 * MEAN_STD)] * 2,
+                                          1.0 / (255.0 * IMAGENET_STD)]),
+                          np.concatenate([[-0.5 / MEAN_STD] * 2,
+                                          -0.5 / IMAGENET_STD]))
+            gen = PackedDenseEstimator(
+                self.model.gen_flow_model, packed_output=full,
+                fuse_mv_delta=full and bool(gen_flow_or_delta),
+                input_affine=affine)
+            self.packed = [copy.deepcopy(gen).to(d) for d in self.mesh]
+            if full:
+                cls = PackedResNet18(self.model.base_model)
+                self.packed_cls = [copy.deepcopy(cls).to(d)
+                                   for d in self.mesh]
         self._res_std = [torch.as_tensor(IMAGENET_STD, device=d)
                          for d in self.mesh]
         self._backtrace = backtrace_impl or backtrace_warp_batch
@@ -94,7 +128,8 @@ class DMCPredictor:
         state_dict or a reference `.pth.tar` {epoch, arch, state_dict,
         best_prec1}, DataParallel `module.` prefix stripped), a JAX package
         msgpack file, or a step directory of `--ckpt-backend orbax`
-        (its newest committed step).  Keys of modules the forward does not
+        (its newest committed step); `kwargs` (`pack`, `mesh`, ...) go to
+        the constructor.  Keys of modules the forward does not
         use (the reference's `data_bn`, a GAN discriminator) are dropped;
         a missing key raises.  A JAX orbax directory raises `SystemExit`
         naming its format."""
@@ -107,13 +142,25 @@ class DMCPredictor:
 
     @torch.inference_mode()
     def _forward_u8(self, mv, res, replica=0):
-        """uint8-encoded representation (N, S, S, 2|3) -> logits (N, C) by
-        the replica `replica`, on its device; normalised exactly like the
-        training pipeline (reference dataset.py:251-263)."""
-        mv = (mv.float() / 255.0 - 0.5) / MEAN_STD
-        res = (res.float() / 255.0 - 0.5) / self._res_std[replica]
-        logits, _ = self.replicas[replica](mv.permute(0, 3, 1, 2),
-                                           res.permute(0, 3, 1, 2))
+        """uint8-encoded representation (N, S, S, 2|3) -> float32 logits
+        (N, C) by the replica `replica`, on its device; normalised exactly
+        like the training pipeline (reference dataset.py:251-263), or with
+        the normalize folded into the packed generator."""
+        if self.packed_cls is not None:
+            # the normalize and +mv live in the packed weights: raw u8 in
+            x = torch.cat([mv, res], -1).permute(0, 3, 1, 2)
+            return self.packed_cls[replica](
+                self.packed[replica](x.to(torch.bfloat16))).float()
+        mv = ((mv.float() / 255.0 - 0.5) / MEAN_STD).permute(0, 3, 1, 2)
+        res = ((res.float() / 255.0 - 0.5)
+               / self._res_std[replica]).permute(0, 3, 1, 2)
+        model = self.replicas[replica]
+        if self.packed is not None:
+            x = torch.cat([mv, res], 1).to(torch.bfloat16)
+            dmc = self.packed[replica](x).float()
+            return model.classify(dmc + mv if self.gen_flow_or_delta
+                                  else dmc)
+        logits, _ = model(mv, res)
         return logits
 
     def _shares(self, n):

@@ -352,22 +352,28 @@ def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
     """train_hmdb51 and train_ucf101 set the dataset default; the
     parallel flags stop on one process where the JAX command does, and
     `--fsdp` and the directory checkpoint backend reach the loop; the TPU workarounds
-    parse and say they change nothing; a missing --pretrained_3d raises;
-    without CUDA the default device raises."""
+    parse and say they change nothing, while `--packed-gen` reaches the
+    model; a missing --pretrained_3d raises; without CUDA the default
+    device raises."""
     got = {}
     monkeypatch.setattr(train_i3d, "train", lambda args, *a, **kw: got.update(
-        dataset=args.dataset, backend=args.ckpt_backend)
-        or type("R", (), {"best_top1": 1.0})())
+        dataset=args.dataset, backend=args.ckpt_backend,
+        packed=args.packed_gen) or type("R", (), {"best_top1": 1.0})())
     monkeypatch.setattr(train_i3d, "creat", lambda *a, **kw: (None, None))
     base = FLAGS[2:] + _data_flags(corpus) + ["--device", "cpu"]
     train_ucf101.main(base)
     assert got["dataset"] == "UCF101"
     train_hmdb51.main(base + ["--accum-chunk", "4", "--remat", "1",
                               "--packed-gen", "2"])
-    assert got["dataset"] == "HMDB51"
+    assert got["dataset"] == "HMDB51" and got["packed"] == 2
     out = capsys.readouterr().out
-    for flag in ("--accum-chunk", "--remat", "--packed-gen"):
+    for flag in ("--accum-chunk", "--remat"):
         assert f"{flag}: a TPU workaround" in out, flag
+    assert "--packed-gen:" not in out
+    args = train_i3d.build_parser().parse_args(FLAGS[2:] + ["--packed-gen",
+                                                            "2"])
+    net, _ = train_i3d.build_model(args, 5, 32)
+    assert net.gen_flow_model.packed == 2
     args = _train_args(corpus, tmp_path, [
         "--pretrained_3d", str(tmp_path / "missing.pth")])
     with pytest.raises(SystemExit, match="missing.pth does not exist"):

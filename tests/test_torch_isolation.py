@@ -58,6 +58,8 @@ REQUIRED = {"dmcnet_tpu_torch.train.engine", "dmcnet_tpu_torch.train.metrics",
             "dmcnet_tpu_torch.parallel.temporal",
             "dmcnet_tpu_torch.parallel.pipeline",
             "dmcnet_tpu_torch.parallel.pp_resnet",
+            "dmcnet_tpu_torch.ops.packed_generator",
+            "dmcnet_tpu_torch.ops.packed_resnet",
             "dmcnet_tpu_torch.utils.viz",
             "dmcnet_tpu_torch.utils.profiling",
             "dmcnet_tpu_torch.codec.mpeg4",

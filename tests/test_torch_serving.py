@@ -36,7 +36,8 @@ def _encode_panning(path, rng, n=26, h=64, w=96, gop=12):
 
 @pytest.fixture(scope="module")
 def predictors():
-    """(JAX pack=False predictor, port predictor on the CPU), same weights."""
+    """(JAX pack=False predictor, port pack=False predictor on the CPU),
+    same weights."""
     model = FlaxDMCNet(num_class=NUM_CLASS, num_segments=1,
                        arch_estimator="DenseNetTiny", gen_flow_or_delta=1)
     variables = jax.jit(model.init, static_argnames="train")(
@@ -47,7 +48,8 @@ def predictors():
     sd = state_dict_from_flax(jax.tree.map(np.asarray, variables["params"]),
                               jax.tree.map(np.asarray,
                                            variables["batch_stats"]))
-    tp = DMCPredictor(sd, num_class=NUM_CLASS, input_size=HW, device="cpu")
+    tp = DMCPredictor(sd, num_class=NUM_CLASS, input_size=HW, pack=False,
+                      device="cpu")
     return jp, tp
 
 
@@ -142,7 +144,7 @@ def test_cli_serve_scores_and_saves(predictors, clips, tmp_path):
     out = tmp_path / "scores.npz"
     scores = serve.main(["--weights", str(ckpt), "--num-class",
                          str(NUM_CLASS), "--input_size", str(HW),
-                         "--chunk-gops", "4", "--device", "cpu",
+                         "--chunk-gops", "4", "--device", "cpu", "--no-pack",
                          "--save-scores", str(out), *clips[:2]])
     want = tp.predict_videos(clips[:2], chunk_gops=4)
     for a, b in zip(scores, want):

@@ -46,9 +46,10 @@ def predictors():
     sd = state_dict_from_flax(jax.tree.map(np.asarray, variables["params"]),
                               jax.tree.map(np.asarray,
                                            variables["batch_stats"]))
-    tp = DMCPredictor(sd, num_class=NUM_CLASS, input_size=HW, mesh=MESH)
+    tp = DMCPredictor(sd, num_class=NUM_CLASS, input_size=HW, pack=False,
+                      mesh=MESH)
     single = DMCPredictor(sd, num_class=NUM_CLASS, input_size=HW,
-                          device="cpu")
+                          pack=False, device="cpu")
     return jp, tp, single
 
 
@@ -165,7 +166,8 @@ def test_cli_serve_mesh_devices(predictors, clips, tmp_path, monkeypatch):
     ckpt = tmp_path / "w.pth.tar"
     torch.save({"state_dict": single.model.state_dict()}, ckpt)
     base = ["--weights", str(ckpt), "--num-class", str(NUM_CLASS),
-            "--input_size", str(HW), "--chunk-gops", "4", "--device", "cpu"]
+            "--input_size", str(HW), "--chunk-gops", "4", "--device", "cpu",
+            "--no-pack"]
     one = serve.main(base + clips[:2])
     three = serve.main(base + ["--mesh-devices", "3"] + clips[:2])
     for a, b in zip(three, one):

@@ -6,7 +6,7 @@ than the whole smoke:
 
 Each name is a `<name>_phase(torch, bt, dev, gops, smi, workdir)` of
 `chip_smoke.py` (pipeline, utils, train, gan, dist, parallel,
-i3d_train).  The phases get the smoke's three synthetic 256x320 GOPs
+i3d_train, packed).  The phases get the smoke's three synthetic 256x320 GOPs
 (16x16, 8x8 and 4x4 blocks, seed 0) and a temporary work directory, TF32
 off, as in the smoke; the card's name and power limit come first.
 Kernel checks and the build are the smoke's alone: run it whole before
