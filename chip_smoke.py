@@ -105,7 +105,9 @@ dispatcher).  Phases:
                  eval step, card against CPU (He-normal weights, so the
                  logits see the clip); step, generator and backbone times
                  at T = 250 in fp32, TF32 and bf16 with videos/s, peak
-                 memory and the FLOPs' share of the card's peak;
+                 memory and the FLOPs' share of the card's peak; the
+                 backbone through the unroll_time lowering (kt 2D convs)
+                 beside it, its logits within UNROLL_TOL of Conv3d's;
                  cli.evaluate_video_i3d.evaluate() over 4 videos x 2
                  rounds, its npz checked; a reference-layout .pth written,
                  reloaded through --load-weights bit-equal, and an RGB
@@ -118,9 +120,19 @@ dispatcher).  Phases:
                  recipe's --pretrained_3d file is not in the repository):
                  a D and a G macro step of 2 microbatches card against CPU
                  with dropout off (1 clip x 16 frames at 64², f32 losses,
-                 f64 parameters); D- and G-phase microstep times (one
-                 microbatch of 3 clips x 64 frames: forward, backward,
-                 optimizer step) in fp32, TF32 and bf16 with peak memory;
+                 f64 parameters); --remat 1 and dots against 0 at that
+                 size (f64: losses, gradients, BN statistics and batch
+                 counts, the statistics also against the CPU; bf16:
+                 losses, the whole gradient beside a rerun of --remat 0);
+                 at the recipe's width (one microbatch of 3
+                 clips x 64 frames at 224², fp64) a D then a G
+                 microstep through make_i3d_steps from one state under
+                 --remat 1, dots and unroll_time against --remat 0
+                 (metrics, parameters, BN statistics, carried gradients,
+                 batch counts); then D- and G-phase microstep times
+                 (forward, backward, optimizer step) in fp32, TF32 and bf16
+                 with peak memory, under --remat 1 and dots in fp32 and
+                 bf16, and the G microstep through unroll_time;
                  one 32-microbatch D and G macro step fed from clips staged
                  on the host (ms, clips/s, peak memory, the host assembly
                  on its own line); the cli.train_i3d loop (--iter-size 2,
@@ -228,6 +240,21 @@ LOGIT_RTOL = LOGIT_ATOL = 1e-3
 # reference's largest |logit| (bfloat16 keeps 8 significant bits, about
 # 0.4% a rounding, over the generator's 6 and ResNet-18's 20 layers).
 PACK_TOL = 2e-2
+# The unroll_time lowering (kt 2D convs) against the Conv3d path on the same
+# weights: max |logit diff| within UNROLL_TOL of the largest |logit|.  fp32
+# (TF32 off) differs only in summation order; under TF32 and bf16 each
+# layer's inputs round to 10 and 7 mantissa bits, and the unrolled sum of
+# 3 bf16 taps rounds twice more, which ~60 layers carry to the logits.
+UNROLL_TOL = {"fp32": 1e-4, "tf32": 2e-2, "bf16": 5e-2}
+# --remat 1 / dots against --remat 0 under bf16 autocast: the whole
+# gradient's |diff| (L2 over every tensor) within REMAT_BF16_TOL of its
+# norm.  bf16 gradients are not reproducible run to run (the backward's
+# atomic adds sum in a varying order, and ~60 layers of bf16 rounding
+# carry it): --remat 0 against a rerun of itself differs by 1.5-1.6% of
+# the norm on an H100, more on small tensors that sum nearly cancelling
+# terms (BN biases), so no tensor-by-tensor bound holds.  The smoke prints
+# that rerun beside the check; float64 is the exact check.
+REMAT_BF16_TOL = 5e-2
 # Serving over several cards against one (tests/test_torch_serving.py's).
 SERVE_RTOL, SERVE_ATOL = 1e-4, 2e-4
 # The HMDB-51 recipe's data-layer width (examples/hmdb51_gen_flow/run.sh).
@@ -819,17 +846,21 @@ def _card_vs_cpu(torch, dev, batch, build, run, what, shown, desc=None):
               + f"; agree: {checked} (rtol {TRAIN_LOSS_RTOL}, TF32 off)")
 
 
-def _precision_times(torch, make_fns, trained, smi, clips=BATCH * SEGMENTS):
+def _precision_times(torch, make_fns, trained, smi, clips=BATCH * SEGMENTS,
+                     precisions=("fp32", "tf32", "bf16"), what="step"):
     """Median ms (TRAIN_TIMED_STEPS, CUDA events) and peak memory of each
-    function of `make_fns(bf16)` on `clips` clips a call, in fp32 (TF32
-    off), TF32 and bf16 autocast, beside the memory already allocated when
-    it starts (model, optimizer state, batches), and clips/s over one call
-    of each function named in `trained`."""
+    function of `make_fns(bf16)` on `clips` clips a call, in each of
+    `precisions`: fp32 (TF32 off), TF32 and bf16 autocast, beside the
+    memory already allocated when it starts (model, optimizer state,
+    batches), and clips/s over one call of each function named in
+    `trained`."""
     timing = {}
-    print(f"  step times on {smi} (medians of {TRAIN_TIMED_STEPS}, CUDA "
+    print(f"  {what} times on {smi} (medians of {TRAIN_TIMED_STEPS}, CUDA "
           f"events, {clips} clips a step):")
     for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
                               ("bf16", False, True)):
+        if label not in precisions:
+            continue
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
         row = {}
@@ -1551,7 +1582,7 @@ def i3d_flops(torch, net, x):
     return counts["gen"], counts["i3d"]
 
 
-def i3d_phase(torch, bt, dev, gops, workdir):
+def i3d_phase(torch, bt, dev, gops, smi, workdir):
     """10. I3D whole-video evaluation at the recipe's width, with its files
     in `workdir`."""
     import os
@@ -1561,7 +1592,7 @@ def i3d_phase(torch, bt, dev, gops, workdir):
         I3DBatchAssembler,
         i3d_augment_batch,
     )
-    from dmcnet_tpu_torch.models.i3d import get_symbol
+    from dmcnet_tpu_torch.models.i3d import I3D, get_symbol
     from dmcnet_tpu_torch.train import engine_i3d
 
     phase("i3d")
@@ -1649,6 +1680,13 @@ def i3d_phase(torch, bt, dev, gops, workdir):
           f"model (the step's useful work) {step_flops / 1e9:.1f} G; the "
           f"augment's resampling contractions {aug_flops / 1e9:.1f} G more, "
           "not counted in the shares below")
+    # the same weights through the unroll_time lowering: conv3d_2c_3x3 and
+    # the Mixed blocks' 3x3x3 convs as 3 2D convs each
+    unrolled = I3D(NUM_CLASS, modality=args.modality,
+                   arch_estimator=args.arch_estimator, input_size=SIZE,
+                   unroll_time=True)
+    unrolled.load_state_dict(net.state_dict())
+    unrolled = unrolled.to(dev).eval()
     timing = {}
     for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
                               ("bf16", False, True)):
@@ -1656,6 +1694,10 @@ def i3d_phase(torch, bt, dev, gops, workdir):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         ctx = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) \
             if bf16 else (lambda: torch.autocast("cuda", enabled=False))
+
+        def backbone_unrolled():
+            with torch.no_grad(), ctx():
+                return unrolled.features_to_logits(gen)
 
         def t_step():
             b = i3d_augment_batch(raw, device=dev, **aug)
@@ -1679,13 +1721,26 @@ def i3d_phase(torch, bt, dev, gops, workdir):
         i3d_ms = median_ms(backbone, I3D_TIMED, torch)
         aug_ms = median_ms(lambda: i3d_augment_batch(raw, device=dev, **aug),
                            I3D_TIMED, torch)
+        unrolled_ms = median_ms(backbone_unrolled, I3D_TIMED, torch)
+        with torch.no_grad(), ctx():
+            want = net.features_to_logits(gen).float()
+        got = backbone_unrolled().float()
+        unroll_err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        check(bool(torch.isfinite(got).all())
+              and unroll_err <= UNROLL_TOL[label] * scale,
+              f"unroll_time logits ({label}) {unroll_err} apart from the "
+              f"Conv3d path's (max |logit| {scale})")
         share = step_flops / (step_ms * 1e-3) / PEAK_FLOPS[label]
         timing[label] = {"step_ms": step_ms, "generator_ms": gen_ms,
                          "backbone_ms": i3d_ms, "augment_ms": aug_ms,
                          "videos_per_s": 1e3 / step_ms,
                          "peak_bytes": peak, "resident_bytes": base,
                          "tflops": step_flops / (step_ms * 1e-3) / 1e12,
-                         "peak_share": share}
+                         "peak_share": share,
+                         "backbone_unrolled_ms": unrolled_ms,
+                         "unroll_logit_err": unroll_err,
+                         "unroll_logit_scale": scale}
         print(f"  {label}: eval step (host clip -> augment -> generator -> "
               f"I3D -> logits) {step_ms:.3f} ms = {1e3 / step_ms:.3f} "
               f"videos/s; augment (clip to the card, crop, normalize) "
@@ -1696,6 +1751,14 @@ def i3d_phase(torch, bt, dev, gops, workdir):
               f"model {step_flops / (step_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
               f"{share * 100:.2f}% of the {label} peak "
               f"({PEAK_FLOPS[label] / 1e12:.0f} TFLOP/s)")
+        print(f"  {label}: I3D backbone with unroll_time {unrolled_ms:.3f} ms "
+              f"against {i3d_ms:.3f} ms with Conv3d on {smi} = "
+              f"{i3d_flops_ / (unrolled_ms * 1e-3) / 1e12:.2f} against "
+              f"{i3d_flops_ / (i3d_ms * 1e-3) / 1e12:.2f} TFLOP/s of the "
+              f"backbone's {i3d_flops_ / 1e9:.1f} GFLOP; logits max |diff| "
+              f"{unroll_err:.3g} of max |logit| {scale:.3g} (tolerance "
+              f"{UNROLL_TOL[label]} of it)")
+    del unrolled
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     h2d_ms = median_ms(lambda: torch.from_numpy(raw["frames"]).to(dev),
@@ -1807,11 +1870,13 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
     """11. I3D training at the width of examples/i3d/train.sh (its
     --pretrained_3d file is not in the repository: the weights are seeded
     He-normal), with its files in `workdir`: a D and a G macro step on the
-    card against the CPU, D- and G-phase microstep times in fp32, TF32 and
-    bf16, one 32-microbatch D and G macro step, the `cli.train_i3d` loop
-    through the stage-2 swap, its checkpoint scored by
-    `evaluate_video_i3d` on the card and the CPU.  Returns the numbers for
-    the summary line."""
+    card against the CPU, --remat 1, dots and unroll_time against --remat
+    0 (at 64², and through a D and a G microstep at the recipe's width in
+    float64), D- and G-phase microstep times in fp32, TF32 and bf16 (under
+    each remat, and the G microstep unrolled), one 32-microbatch D and G
+    macro step, the `cli.train_i3d` loop through the stage-2 swap, its
+    checkpoint scored by `evaluate_video_i3d` on the card and the CPU.
+    Returns the numbers for the summary line."""
     import os
 
     from dmcnet_tpu_torch.cli import evaluate_video_i3d as eval_cli
@@ -1820,6 +1885,8 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
         I3DBatchAssembler,
         i3d_augment_batch,
     )
+    from dmcnet_tpu_torch.models.i3d import I3D
+    from dmcnet_tpu_torch.train.engine import _autocast
     from dmcnet_tpu_torch.train.engine_i3d import make_i3d_steps
     from dmcnet_tpu_torch.train.optimizers import make_i3d_optimizers
 
@@ -1834,18 +1901,36 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
     # classifier at lr1 = 0 under --detach, full backward
     lrs = (args.lr_base, 0.0, args.lr_d, train_i3d.WEIGHT_DECAY)
 
-    def build(size, dropout=True):
+    def build(size, dropout=True, remat="0", unroll_time=False):
+        """The command's model at --remat `remat`, seeded weights; with
+        `unroll_time`, an `I3D(unroll_time=True)` holding those weights
+        (no command sets it, as in the JAX package)."""
+        args.remat = remat
         net = he_init(torch, train_i3d.build_model(args, NUM_CLASS,
                                                    size)[0], 0)
+        args.remat = "0"
+        check(net.mixed_4b.remat == {"0": False, "1": True,
+                                     "dots": "dots"}[remat],
+              f"--remat {remat} did not reach the model")
+        if unroll_time:
+            unrolled = I3D(NUM_CLASS, modality=args.modality,
+                           arch_estimator=args.arch_estimator,
+                           arch_d=args.arch_d, input_size=size,
+                           dropout_prob=args.drop_out, unroll_time=True)
+            unrolled.load_state_dict(net.state_dict())
+            net = unrolled
         if not dropout:
             net.dropout.p = 0.0
             _dropout_off(torch, net)
         return net
 
-    def steps_of(model, bf16=False):
-        opts = make_i3d_optimizers(model, optim=args.optimizer, lr_mul=0.5,
+    def make_opts(model):
+        return make_i3d_optimizers(model, optim=args.optimizer, lr_mul=0.5,
                                    has_gan=True, freeze_base=True)
-        return make_i3d_steps(model, opts, adv=args.adv, bf16=bf16)
+
+    def steps_of(model, bf16=False):
+        return make_i3d_steps(model, make_opts(model), adv=args.adv,
+                              bf16=bf16)
 
     def split(b):
         return [{k: v[i] for k, v in b.items()}
@@ -1872,6 +1957,7 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
                  d_then_g, "D + G macro step, dropout off",
                  ("D loss", "G loss"),
                  desc=f"2 microbatches of 1 clip x {t} frames at {size}²")
+    remat_check = _remat_check(torch, dev, micros, build, size, _autocast)
 
     # (b) microstep times at the recipe's width: one microbatch of
     # I3D_TRAIN_B clips x I3D_TRAIN_T frames, resident on the card
@@ -1888,6 +1974,12 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
           f"{stage_s:.3f} s = {stage_s / n_clips:.3f} s a clip (host clock)")
     aug = dict(ds_factor=args.ds_factor, input_size=SIZE, device=dev)
     resident = i3d_augment_batch(staged[0], **aug)
+    full_check = _full_width_check(
+        torch, {"--remat 0": {}, "--remat 1": {"remat": "1"},
+                "--remat dots": {"remat": "dots"},
+                "unroll_time": {"unroll_time": True}},
+        lambda kw: build(SIZE, dropout=False, **kw).to(dev), make_opts,
+        args.adv, resident, lrs)
     model = build(SIZE).to(dev)
 
     def timed(bf16):
@@ -1897,6 +1989,48 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
 
     timing = _precision_times(torch, timed, ("d_microstep", "g_microstep"),
                               smi, clips=I3D_TRAIN_B)
+
+    # (b2) the same microsteps under --remat 1 and dots, each on a fresh
+    # model of the same weights built by the command's build_model
+    remat_timing = {}
+    for flag in ("1", "dots"):
+        rematted = build(SIZE, remat=flag).to(dev)
+
+        def timed_remat(bf16, net=rematted):
+            d_step, g_step = steps_of(net, bf16=bf16)
+            return {"d_microstep": lambda: d_step([resident], *lrs, True),
+                    "g_microstep": lambda: g_step([resident], *lrs, True)}
+
+        remat_timing[flag] = _precision_times(
+            torch, timed_remat, ("d_microstep", "g_microstep"), smi,
+            clips=I3D_TRAIN_B, precisions=("fp32", "bf16"),
+            what=f"--remat {flag} microstep")
+        del rematted
+    for flag, row in remat_timing.items():
+        for label, r in row.items():
+            base = timing[label]
+            print(f"  --remat {flag} against 0, {label}: " + ", ".join(
+                f"{n} {r[n + '_ms'] / base[n + '_ms']:.3f}x the time, "
+                f"{r[n + '_peak_bytes'] / base[n + '_peak_bytes']:.3f}x "
+                "the peak memory" for n in ("d_microstep", "g_microstep")))
+
+    # (b3) the G microstep through the unroll_time lowering, same weights
+    unrolled = build(SIZE, unroll_time=True).to(dev)
+
+    def timed_unrolled(bf16):
+        _, g_step = steps_of(unrolled, bf16=bf16)
+        return {"g_microstep": lambda: g_step([resident], *lrs, True)}
+
+    unroll_timing = _precision_times(torch, timed_unrolled, ("g_microstep",),
+                                     smi, clips=I3D_TRAIN_B,
+                                     what="unroll_time G microstep")
+    for label, r in unroll_timing.items():
+        print(f"  unroll_time G microstep against Conv3d, {label}: "
+              f"{r['g_microstep_ms']:.3f} against "
+              f"{timing[label]['g_microstep_ms']:.3f} ms, peak memory "
+              f"{r['g_microstep_peak_bytes'] / 2**30:.3f} against "
+              f"{timing[label]['g_microstep_peak_bytes'] / 2**30:.3f} GiB")
+    del unrolled
 
     # (c) one whole macro step of each kind: I3D_TRAIN_ITER microbatches
     # cut from the staged clips in turn, each to the card and augmented
@@ -1987,12 +2121,216 @@ def i3d_train_phase(torch, bt, dev, gops, smi, workdir):
           f"{t_card:.2f} s card, {t_cpu:.2f} s CPU")
     phase_s = time.perf_counter() - t_phase
     print(f"  i3d_train phase {phase_s:.1f} s")
-    return {"timing": timing, "macro": macro, "stage_assemble_s": stage_s,
+    return {"timing": timing, "remat_timing": remat_timing,
+            "remat_check": remat_check, "full_width_check": full_check,
+            "unroll_timing": unroll_timing,
+            "macro": macro, "stage_assemble_s": stage_s,
             "epochs": [{k: e[k] for k in ("epoch", "data_time",
                                           "batch_time")}
                        for e in result.epochs], "loop_s": loop_s,
             "launches": launches, "eval_card_s": t_card,
             "eval_cpu_s": t_cpu, "phase_s": phase_s}
+
+
+def _full_width_check(torch, variants, make, make_opts, adv, batch, lrs):
+    """A D then a G microstep through `make_i3d_steps` on `batch` (the
+    recipe's width) from one state, for each of `variants` ({name: kwargs
+    of `make`}), in float64, each against the first: metrics within
+    TRAIN_LOSS_RTOL; within TRAIN_PARAM_RTOL / ATOL the gradients each
+    optimizer steps with, the carried gradients (the .grad sums the G
+    step leaves for the next D step), the parameters and the BN
+    statistics; batch counts equal.  float64, as the phase's other
+    parameter checks: in float32 a reordered sum (unroll_time's, or the
+    card's atomic adds) flips ReLUs and max-pool choices near their ties,
+    the seeded network's gradients then move by about a percent, and
+    Adam's first step turns a gradient's flipped sign into 2 x lr.
+    Returns the worst differences."""
+    from dmcnet_tpu_torch.train.engine_i3d import make_i3d_steps
+
+    tol = dict(rtol=TRAIN_PARAM_RTOL, atol=TRAIN_PARAM_ATOL)
+    batch = {k: v.double() if v.is_floating_point() else v
+             for k, v in batch.items()}
+    runs = {}
+    for name, kw in variants.items():
+        net = make(kw).double()
+        opts = make_opts(net)
+        names = {id(p): k for k, p in net.named_parameters()}
+        stepped = {}
+
+        def recording(opt, real):
+            def step(*a, **k):
+                for group in opt.param_groups:
+                    for p in group["params"]:
+                        if p.grad is not None:
+                            stepped[names[id(p)]] = p.grad.detach().clone()
+                return real(*a, **k)
+            return step
+
+        for opt in opts.values():
+            opt.step = recording(opt, opt.step)
+        d_step, g_step = make_i3d_steps(net, opts, adv=adv)
+        t0 = time.perf_counter()
+        metrics = {"D " + k: float(v) for k, v in
+                   d_step([batch], *lrs, True).items()}
+        metrics.update({"G " + k: float(v) for k, v in
+                        g_step([batch], *lrs, True).items()})
+        seconds = time.perf_counter() - t0
+        for opt in opts.values():
+            del opt.step   # the wrapper refers to its optimizer: a cycle
+        runs[name] = (metrics, {k: v.detach().clone() for k, v in
+                                net.state_dict().items()}, stepped,
+                      {k: p.grad.detach().clone() for k, p in
+                       net.named_parameters() if p.grad is not None},
+                      seconds)
+        del net, opts, d_step, g_step
+    (base_name, (w_metrics, w_state, w_stepped, w_carried, w_s)), \
+        *others = runs.items()
+    worst = {}
+    desc = (f"{batch['label'].shape[0]} clips x {batch['mv'].shape[2]} "
+            f"frames at {batch['mv'].shape[-1]}²")
+    for name, (metrics, state, stepped, carried, seconds) in others:
+        what = f"{name} vs {base_name}, full width"
+        for k, w in w_metrics.items():
+            check(abs(metrics[k] - w) <= TRAIN_LOSS_RTOL * abs(w),
+                  f"{what}: {k} {metrics[k]} != {w}")
+        grad_err = 0.0
+        for kind, got, want in (("stepped", stepped, w_stepped),
+                                ("carried", carried, w_carried)):
+            check(got.keys() == want.keys() and want,
+                  f"{what}: the {kind} gradients' keys")
+            for k, w in want.items():
+                err = float((got[k] - w).abs().max())
+                grad_err = max(grad_err, err)
+                check(torch.allclose(got[k], w, **tol),
+                      f"{what}: the {kind} gradient of {k} differs by "
+                      f"{err:.3g}")
+        _state_close(torch, state, w_state, what)
+        for k, w in w_state.items():
+            if k.endswith("num_batches_tracked"):
+                check(int(state[k]) == int(w), f"{what}: {k}")
+        worst[name] = {
+            "metric_rel": max(abs(metrics[k] - w) / max(abs(w), 1e-30)
+                              for k, w in w_metrics.items()),
+            "grad": grad_err,
+            "state": max(float((state[k] - w).abs().max())
+                         for k, w in w_state.items()), "s": seconds}
+        print(f"  {what} ({desc}, fp64), a D then a G microstep through "
+              f"make_i3d_steps from one state: losses D "
+              f"{metrics['D loss']:.10f} / {w_metrics['D loss']:.10f}, G "
+              f"{metrics['G loss']:.10f} / {w_metrics['G loss']:.10f}; "
+              f"metrics max rel |diff| {worst[name]['metric_rel']:.3g} "
+              f"(rtol {TRAIN_LOSS_RTOL}); {len(stepped)} stepped and "
+              f"{len(carried)} carried gradients max |diff| {grad_err:.3g}, "
+              f"parameters and BN statistics max |diff| "
+              f"{worst[name]['state']:.3g} (rtol {TRAIN_PARAM_RTOL}, atol "
+              f"{TRAIN_PARAM_ATOL}); batch counts equal; {seconds:.2f} s "
+              f"against {w_s:.2f} s (host clock)")
+    return worst
+
+
+def _remat_check(torch, dev, micros, build, size, autocast):
+    """--remat 1 and dots against 0 on the card: train-mode forward and
+    backward of a D-phase loss (cross-entropy + the cue's MSE) over the
+    `micros` (2 microbatches, carried into .grad) on fresh models of the
+    same weights, in float64 and under bf16 autocast.  float64: losses
+    within TRAIN_LOSS_RTOL, gradients and BN statistics within
+    TRAIN_PARAM_RTOL / ATOL of --remat 0's, and of the CPU's --remat 0;
+    batch counts equal (a recompute must not move the statistics again).
+    bf16: losses within TRAIN_LOSS_RTOL, the whole gradient's |diff|
+    within REMAT_BF16_TOL of its norm, beside --remat 0 against a second
+    run of itself; statistics within the float64 tolerance.  At the CPU's
+    small size; `_full_width_check` holds the training steps at the
+    recipe's width.  Returns the worst differences."""
+    import torch.nn.functional as F
+
+    def passes(remat, device, dtype, bf16=False):
+        net = build(size, dropout=False, remat=remat).to(device,
+                                                         dtype).train()
+        losses = []
+        for mb in micros:
+            b = {k: v.to(device, dtype) if v.is_floating_point()
+                 else v.to(device) for k, v in mb.items()}
+            with autocast(torch.device(device), bf16):
+                logits, gen = net(torch.cat([b["mv"], b["residual"]], 1),
+                                  "flow+logit")
+            loss = F.cross_entropy(logits.to(dtype), b["label"]) \
+                + F.mse_loss(gen.to(dtype), b["flow"])
+            loss.backward()
+            losses.append(float(loss.detach()))
+        grads = {k: p.grad for k, p in net.named_parameters()
+                 if p.grad is not None}
+        stats = {k: v for k, v in net.state_dict().items()
+                 if k.rsplit(".", 1)[-1] in ("running_mean", "running_var",
+                                             "num_batches_tracked")}
+        return losses, grads, stats
+
+    def stats_close(a, b, what):
+        _state_close(torch, a, b, what)
+        for k, v in a.items():
+            if k.endswith("num_batches_tracked"):
+                check(int(v) == int(b[k]), f"{what}: {k} {int(v)} != "
+                      f"{int(b[k])}")
+        counted = "mixed_5c.branch_0.batch3d.num_batches_tracked"
+        check(int(a[counted]) == len(micros), f"{what}: {counted}")
+
+    def bf16_err(grads, want):
+        """||g - w|| / ||w|| over every gradient tensor at once."""
+        diff = sum(float((grads[k] - w).square().sum())
+                   for k, w in want.items())
+        return (diff / sum(float(w.square().sum())
+                           for w in want.values())) ** 0.5
+
+    worst = {}
+    for label, dtype, bf16 in (("fp64", torch.float64, False),
+                               ("bf16", torch.float32, True)):
+        base = passes("0", dev, dtype, bf16)
+        if label == "fp64":
+            cpu = passes("0", "cpu", dtype)
+            stats_close(base[2], cpu[2], "--remat 0 BN statistics, card "
+                        "vs CPU (fp64)")
+        else:
+            noise = bf16_err(passes("0", dev, dtype, bf16)[1], base[1])
+            worst["0_bf16_rerun"] = {"grad": noise}
+        for flag in ("1", "dots"):
+            losses, grads, stats = passes(flag, dev, dtype, bf16)
+            what = f"--remat {flag} vs 0 ({label})"
+            for g, w in zip(losses, base[0]):
+                check(abs(g - w) <= TRAIN_LOSS_RTOL * abs(w),
+                      f"{what}: loss {g} != {w}")
+            check(grads.keys() == base[1].keys(), f"{what}: gradients")
+            if bf16:
+                err = bf16_err(grads, base[1])
+                check(err <= REMAT_BF16_TOL, f"{what}: the gradients' "
+                      f"|diff| is {err:.3g} of their norm")
+            else:
+                err = 0.0
+                for k, w in base[1].items():
+                    err = max(err, float((grads[k] - w).abs().max()))
+                    check(torch.allclose(grads[k], w, rtol=TRAIN_PARAM_RTOL,
+                                         atol=TRAIN_PARAM_ATOL),
+                          f"{what}: the gradient of {k} differs")
+            stats_close(stats, base[2], f"{what}: BN statistics")
+            if label == "fp64":
+                stats_close(stats, cpu[2], f"--remat {flag} (card) vs "
+                            "--remat 0 (CPU), fp64: BN statistics")
+            stat_err = max(float((stats[k].double() - base[2][k].double())
+                                 .abs().max()) for k in stats)
+            worst[f"{flag}_{label}"] = {"grad": err, "stats": stat_err,
+                                        "loss": max(abs(g - w) / abs(w) for
+                                                    g, w in zip(losses,
+                                                                base[0]))}
+            frames = micros[0]["mv"].shape[2]
+            print(f"  {what}, 2 microbatches of 1 clip x {frames} frames "
+                  f"at {size}², forward + backward in train mode: "
+                  f"losses {losses} / {base[0]}; gradients "
+                  + (f"|diff| {err:.3g} of their norm (--remat 0 against "
+                     f"a rerun of itself {noise:.3g})" if bf16 else
+                     f"max |diff| {err:.3g}") + ", BN "
+                  f"statistics max |diff| {stat_err:.3g}, batch counts "
+                  f"{len(micros)}" + ("; BN statistics also within "
+                                      "tolerance of the CPU's --remat 0"
+                                      if label == "fp64" else ""))
+    return worst
 
 
 def mesh_phase(torch, bt, pred, rows, outputs, cards, smi, workdir):
@@ -3366,7 +3704,7 @@ def main():
     data = data_phase(torch, bt, dev, gops, pred, rng)
     train = in_workdir(train_phase, torch, bt, dev, gops, smi)
     gan = in_workdir(gan_phase, torch, bt, dev, gops, smi)
-    i3d = in_workdir(i3d_phase, torch, bt, dev, gops)
+    i3d = in_workdir(i3d_phase, torch, bt, dev, gops, smi)
     i3d_train = in_workdir(i3d_train_phase, torch, bt, dev, gops, smi)
     dist_numbers = in_workdir(dist_phase, torch, bt, dev, gops, smi)
     parallel = in_workdir(parallel_phase, torch, bt, dev, gops, smi)

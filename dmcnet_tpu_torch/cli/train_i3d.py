@@ -40,8 +40,14 @@ Differences from the JAX command:
     pads it to keep one compiled shape);
   * a `--pretrained_3d` or `--new_classifier` file that does not exist
     raises instead of being skipped;
-  * the TPU workarounds `--accum-chunk` and `--remat` parse and change
-    nothing (accumulation is sequential here already).
+  * `--accum-chunk` parses and changes nothing: the JAX command's chunked
+    steps feed the macro step's microbatches to the chip in chunks, which
+    the sequential accumulation here already does one at a time, with the
+    same result.  Its refusal beside `--tp > 1` or `--fsdp` is kept.
+
+`--remat 1` recomputes the I3D's Mixed blocks and the generator in the
+backward, `--remat dots` the Mixed blocks' BN/ReLU tails only
+(`models/i3d.py`); the running statistics are updated once.
 
 Several processes (`parallel/`), as `cli.train`: `--dist-coordinator
 host:port --dist-num-processes N --dist-process-id R` starts rank R of N,
@@ -123,9 +129,10 @@ from dmcnet_tpu_torch.utils.metrics_log import MetricsLogger
 
 WEIGHT_DECAY = 1e-4
 PRINT_FREQ = 50
-_NOT_PORTED = ("a TPU workaround of the JAX package, not ported: "
-               "accumulation here is sequential, one microbatch on the card "
-               "at a time; parses and changes nothing")
+_ACCUM_CHUNK = ("the JAX command's chunked accumulation; the port's "
+                "sequential accumulation already computes what the chunked "
+                "steps compute, one microbatch on the card at a time, so "
+                "this parses and changes nothing")
 
 
 def build_parser(dataset_default="HMDB51"):
@@ -192,7 +199,10 @@ def build_parser(dataset_default="HMDB51"):
     p.add_argument('--video-prefix', type=str, required=False)
     p.add_argument('--flow-prefix', type=str, default=None)
     p.add_argument('--remat', type=str, default="0",
-                   choices=["0", "1", "dots"], help=_NOT_PORTED)
+                   choices=["0", "1", "dots"],
+                   help="rematerialize Mixed blocks (activation ckpt; the "
+                        "reference imports checkpoint_sequential unused, "
+                        "i3d.py:19)")
     p.add_argument('--ckpt-backend', type=str, default='msgpack',
                    choices=['msgpack', 'orbax', 'orbax-async'],
                    help="msgpack (the JAX package's name for its default) "
@@ -209,7 +219,7 @@ def build_parser(dataset_default="HMDB51"):
     p.add_argument('--workers', type=int, default=8,
                    help='host loader threads (the reference hardcodes '
                         'DataLoader num_workers=8, iterator_factory.py:184)')
-    p.add_argument('--accum-chunk', type=int, default=0, help=_NOT_PORTED)
+    p.add_argument('--accum-chunk', type=int, default=0, help=_ACCUM_CHUNK)
     p.add_argument('--tp', type=int, default=0,
                    help='tensor parallelism degree: the large layers '
                         'sharded on their output channels over this many '
@@ -250,7 +260,9 @@ def build_model(args, num_classes, input_size=224):
             args.network, modality=args.modality, num_classes=num_classes,
             arch_estimator=args.arch_estimator, arch_d=args.arch_d,
             input_size=input_size, dropout_prob=args.drop_out,
-            packed_gen=args.packed_gen)
+            packed_gen=args.packed_gen,
+            remat=("dots" if args.remat == "dots"
+                   else bool(int(args.remat))))
 
 
 def init_pretrained(args, model):
@@ -547,6 +559,12 @@ def main(argv=None, dataset_default="HMDB51", input_size=224):
     args.gpus = [int(g) for g in args.gpus.split(",") if g.strip()]
     spawn = len(args.gpus) > 1 and args.dist_num_processes is None
     n_proc = len(args.gpus) if spawn else (args.dist_num_processes or 1)
+    if args.accum_chunk and args.accum_chunk < args.iter_size and (
+            (args.tp and args.tp > 1) or args.fsdp):
+        raise SystemExit(
+            "--accum-chunk composes with plain data parallelism "
+            "only; --fsdp/--tp already cut per-chip residency by "
+            "sharding state and batch over the mesh")
     check_parallel_flags(n_proc, args.batch_size, args.tp, args.fsdp,
                          args.ckpt_backend.startswith("orbax"))
     if args.modality != "flow+mp4" or not args.arch_estimator:
@@ -560,10 +578,8 @@ def main(argv=None, dataset_default="HMDB51", input_size=224):
         return spawn_ranks(main, argv, args.gpus,
                            dataset_default=dataset_default,
                            input_size=input_size)
-    for flag, value in (("--accum-chunk", args.accum_chunk),
-                        ("--remat", args.remat != "0")):
-        if value and (args.dist_process_id or 0) == 0:
-            print(f"{flag}: {_NOT_PORTED}")
+    if args.accum_chunk and (args.dist_process_id or 0) == 0:
+        print(f"--accum-chunk: {_ACCUM_CHUNK}")
     device = device_for(args)
     if device.type == "cuda" and args.dist_num_processes:
         if not any(a.startswith("--gpus") for a in argv):

@@ -23,7 +23,9 @@ with `load_state_dict` directly.  Families:
 
 `packed=s` (s > 1, `--packed-gen s`) runs a dense estimator through the
 space-to-depth packed layout of `ops/packed_generator.py`, an exact
-reparameterization of the same parameters.
+reparameterization of the same parameters.  `remat=True` recomputes an
+estimator's activations in the backward (`layers.remat_call`), same
+parameters.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dmcnet_tpu_torch.models.layers import batch_norm, conv3x3
+from dmcnet_tpu_torch.models.layers import batch_norm, conv3x3, remat_call
 from dmcnet_tpu_torch.ops.packed_generator import (
     depth_to_space,
     pack_conv3x3_torch,
@@ -54,6 +56,17 @@ def _dilated_stage(c_in, c_out, dilation=1):
                          batch_norm(c_out), _leaky())
 
 
+class _Estimator(nn.Module):
+    """An estimator's forward, under `remat_call` when `remat` is set."""
+
+    remat = False
+
+    def forward(self, x):
+        if self.remat:
+            return remat_call(self._forward, x)
+        return self._forward(x)
+
+
 def _context_trunk(dilations, in_channels=5):
     stages, c = [], in_channels
     for w, d in zip(_CONTEXT_WIDTHS, dilations):
@@ -62,18 +75,18 @@ def _context_trunk(dilations, in_channels=5):
     return nn.Sequential(*stages)
 
 
-class ContextNetwork(nn.Module):
+class ContextNetwork(_Estimator):
     def __init__(self, gen_flow_ds_factor=0):
         super().__init__()
         dilations = (1, 2, 4, 8, 1, 1, 1) if gen_flow_ds_factor else (
             1, 2, 4, 8, 16, 1, 1)
         self.conv_context = _context_trunk(dilations)
 
-    def forward(self, x):
+    def _forward(self, x):
         return self.conv_context(x)
 
 
-class ContextNetworkAtt(nn.Module):
+class ContextNetworkAtt(_Estimator):
     """ContextNetwork's first six stages + a flow head and an attention
     head; forward returns (flow, attention)."""
 
@@ -86,12 +99,12 @@ class ContextNetworkAtt(nn.Module):
         self.predict_flow = _dilated_stage(c, 2)
         self.predict_att = nn.Sequential(_dilated_stage(c, 2), nn.ReLU())
 
-    def forward(self, x):
+    def _forward(self, x):
         x = self.conv_context(x)
         return self.predict_flow(x), self.predict_att(x)
 
 
-class _DenseEstimator(nn.Module):
+class _DenseEstimator(_Estimator):
     """Dense connectivity: each stage takes the concat of every earlier
     activation and the input.
 
@@ -114,7 +127,7 @@ class _DenseEstimator(nn.Module):
             c += w
         self.predict_flow = conv3x3(c, 2)
 
-    def forward(self, x):
+    def _forward(self, x):
         s = self.packed
         if s > 1 and x.shape[2] % s == 0 and x.shape[3] % s == 0:
             return self._packed(x, s)
@@ -148,7 +161,7 @@ class EstimatorDenseNetTiny(_DenseEstimator):
     widths = (8, 8, 6, 4, 2)
 
 
-class _EarlyFusionTiny(nn.Module):
+class _EarlyFusionTiny(_Estimator):
     fusion = ""  # 'sum' | 'stack'
     widths = (8, 6, 4, 2)
 
@@ -163,7 +176,7 @@ class _EarlyFusionTiny(nn.Module):
             c += w
         self.predict_flow = conv3x3(c, 2)
 
-    def forward(self, x):
+    def _forward(self, x):
         x_mv = self.conv_0_mv(x[:, :2])
         x_r = self.conv_0_r(x[:, 2:])
         x = x_mv + x_r if self.fusion == "sum" else torch.cat([x_mv, x_r], 1)
@@ -189,21 +202,27 @@ _ESTIMATORS = {
 }
 
 
-def make_estimator(arch_estimator, att=0, gen_flow_ds_factor=0, packed=0):
+def make_estimator(arch_estimator, att=0, gen_flow_ds_factor=0, packed=0,
+                   remat=False):
     """Estimator by reference name (model.py:311-325).  `att` selects
     ContextNetworkAtt; only the ContextNetwork family has an attention
     head.  `packed`: the dense family's space-to-depth factor
-    (`_DenseEstimator`); the other families ignore it."""
+    (`_DenseEstimator`); the other families ignore it.  `remat`:
+    recompute the estimator's activations in the backward."""
     if arch_estimator == "ContextNetwork":
         cls = ContextNetworkAtt if att else ContextNetwork
-        return cls(gen_flow_ds_factor=gen_flow_ds_factor)
-    if att:
+        net = cls(gen_flow_ds_factor=gen_flow_ds_factor)
+    elif att:
         raise ValueError(f"att=1 needs arch_estimator ContextNetwork, not "
                          f"{arch_estimator!r}")
-    try:
-        cls = _ESTIMATORS[arch_estimator]
-    except KeyError:
-        raise ValueError(
-            f"unknown arch_estimator {arch_estimator!r}; choose one of "
-            f"{sorted(_ESTIMATORS) + ['ContextNetwork']}") from None
-    return cls(packed=packed) if issubclass(cls, _DenseEstimator) else cls()
+    else:
+        try:
+            cls = _ESTIMATORS[arch_estimator]
+        except KeyError:
+            raise ValueError(
+                f"unknown arch_estimator {arch_estimator!r}; choose one of "
+                f"{sorted(_ESTIMATORS) + ['ContextNetwork']}") from None
+        net = cls(packed=packed) if issubclass(cls, _DenseEstimator) \
+            else cls()
+    net.remat = bool(remat)
+    return net

@@ -28,9 +28,17 @@ runs on one rank's frames of a clip split along T (`evaluate_video_i3d
 --shard-time`); without one it is the plain forward.
 
 `packed_gen=s` runs a dense generator in the space-to-depth packed layout
-(`generators._DenseEstimator`), same parameters.  The JAX package's TPU
-lowerings `unroll_time` and `remat` are not ported: they change neither
-parameters nor results.
+(`generators._DenseEstimator`), same parameters.
+
+`remat` (the JAX package's Mixed-block rematerialization, `train_i3d
+--remat`): True recomputes each Mixed block and the generator in the
+backward; "dots" keeps each Mixed block's convolution outputs and
+recomputes its BN/ReLU tails, pools and concatenation, and leaves the
+generator alone (`layers.remat_call`).  Without grad nothing is
+rematerialized.  `unroll_time` runs every conv with kt > 1 and temporal
+stride 1 (`conv3d_2c_3x3` and the Mixed blocks' 3x3x3 convs) as kt 2D
+convs (`layers.TimeUnrolledConv3d`).  Neither changes a parameter or a
+state-dict key, nor a result beyond float round-off.
 """
 
 from __future__ import annotations
@@ -42,21 +50,27 @@ from torch import nn
 from dmcnet_tpu_torch.models.discriminators import make_discriminator
 from dmcnet_tpu_torch.models.generators import make_estimator
 from dmcnet_tpu_torch.models.layers import (
+    TimeUnrolledConv3d,
     batch_norm3d,
     max_pool3d_same,
+    remat_call,
     window3d,
 )
 
 
 class Unit3D(nn.Module):
-    """conv3d (TF-SAME) [+ BN] [+ ReLU]."""
+    """conv3d (TF-SAME) [+ BN] [+ ReLU]; `unroll_time` unrolls a conv of
+    kt > 1 and temporal stride 1 into kt 2D convs."""
 
     def __init__(self, c_in, c_out, kernel=(1, 1, 1), stride=(1, 1, 1),
-                 activation="relu", use_bias=False, use_bn=True):
+                 activation="relu", use_bias=False, use_bn=True,
+                 unroll_time=False):
         super().__init__()
         self.kernel, self.stride = tuple(kernel), tuple(stride)
-        self.conv3d = nn.Conv3d(c_in, c_out, self.kernel, self.stride,
-                                bias=use_bias)
+        conv = TimeUnrolledConv3d if (unroll_time and self.kernel[0] > 1
+                                      and self.stride[0] == 1) else nn.Conv3d
+        self.conv3d = conv(c_in, c_out, self.kernel, self.stride,
+                           bias=use_bias)
         self.batch3d = batch_norm3d(c_out) if use_bn else None
         self.relu = activation == "relu"
 
@@ -81,20 +95,30 @@ class MaxPool3dSame(nn.Module):
 
 class Mixed(nn.Module):
     """Inception block: 1x1 / 1x1-3x3 / 1x1-3x3 / pool-1x1 branches
-    concatenated on channels (reference i3d.py:421-455)."""
+    concatenated on channels (reference i3d.py:421-455); `remat` False,
+    True or "dots" (`layers.remat_call`)."""
 
-    def __init__(self, c_in, out_channels):
+    def __init__(self, c_in, out_channels, remat=False, unroll_time=False):
         super().__init__()
+        self.remat = remat
         b0, b1a, b1b, b2a, b2b, b3 = out_channels
         self.branch_0 = Unit3D(c_in, b0)
-        self.branch_1 = nn.Sequential(Unit3D(c_in, b1a),
-                                      Unit3D(b1a, b1b, (3, 3, 3)))
-        self.branch_2 = nn.Sequential(Unit3D(c_in, b2a),
-                                      Unit3D(b2a, b2b, (3, 3, 3)))
+        self.branch_1 = nn.Sequential(
+            Unit3D(c_in, b1a), Unit3D(b1a, b1b, (3, 3, 3),
+                                      unroll_time=unroll_time))
+        self.branch_2 = nn.Sequential(
+            Unit3D(c_in, b2a), Unit3D(b2a, b2b, (3, 3, 3),
+                                      unroll_time=unroll_time))
         self.branch_3 = nn.Sequential(MaxPool3dSame((3, 3, 3), (1, 1, 1)),
                                       Unit3D(c_in, b3))
 
     def forward(self, x, shard=None):
+        if self.remat:
+            return remat_call(self._branches, x, shard,
+                              dots=self.remat == "dots")
+        return self._branches(x, shard)
+
+    def _branches(self, x, shard):
         ys = [self.branch_0(x, shard)]
         for branch in (self.branch_1, self.branch_2, self.branch_3):
             y = x
@@ -132,16 +156,23 @@ def mixed_width(plan):
 class I3D(nn.Module):
     """Inception-3D classifier with an optional embedded DMC generator
     (`arch_estimator`) and GAN discriminator (`arch_d`, built for frames of
-    `input_size`); `packed_gen`, the dense generator's packing factor."""
+    `input_size`); `packed_gen`, the dense generator's packing factor;
+    `remat` False, True or "dots" and `unroll_time` as in the module
+    docstring."""
 
     def __init__(self, num_classes, modality="rgb", arch_estimator=None,
                  arch_d=None, input_size=224, dropout_prob=0.0,
-                 packed_gen=0):
+                 packed_gen=0, remat=False, unroll_time=False):
         super().__init__()
+        if remat not in (False, True, "dots"):
+            raise ValueError(f"remat must be False, True or 'dots', not "
+                             f"{remat!r}")
+        remat = remat if remat == "dots" else bool(remat)
         self.modality = modality
         if arch_estimator:
             self.gen_flow_model = make_estimator(arch_estimator,
-                                                 packed=packed_gen)
+                                                 packed=packed_gen,
+                                                 remat=remat is True)
         else:
             self.gen_flow_model = None
         if arch_d:
@@ -151,10 +182,11 @@ class I3D(nn.Module):
         self.conv3d_1a_7x7 = Unit3D(self.in_channels, 64, (7, 7, 7),
                                     (2, 2, 2))
         self.conv3d_2b_1x1 = Unit3D(64, 64)
-        self.conv3d_2c_3x3 = Unit3D(64, 192, (3, 3, 3))
+        self.conv3d_2c_3x3 = Unit3D(64, 192, (3, 3, 3),
+                                    unroll_time=unroll_time)
         c = 192
         for name, plan in _MIXED_PLAN.items():
-            self.add_module(name, Mixed(c, plan))
+            self.add_module(name, Mixed(c, plan, remat, unroll_time))
             c = mixed_width(plan)
         self.conv3d_0c_1x1 = Unit3D(c, 400, activation=None, use_bias=True,
                                     use_bn=False)
@@ -209,13 +241,15 @@ class I3D(nn.Module):
 
 
 def get_symbol(name, modality="rgb", num_classes=51, arch_estimator=None,
-               arch_d=None, input_size=224, dropout_prob=0.0, packed_gen=0):
+               arch_d=None, input_size=224, dropout_prob=0.0, packed_gen=0,
+               remat=False):
     """Factory and input config (reference network/symbol_builder.py:12-25,
-    network/config.py:10-27: I3D mean = std = 0.5)."""
+    network/config.py:10-27: I3D mean = std = 0.5).  As the JAX
+    package's, it passes `remat` and not `unroll_time`."""
     if name.upper() != "I3D":
         raise ValueError(f"unknown network {name!r}")
     net = I3D(num_classes=num_classes, modality=modality,
               arch_estimator=arch_estimator, arch_d=arch_d,
               input_size=input_size, dropout_prob=dropout_prob,
-              packed_gen=packed_gen)
+              packed_gen=packed_gen, remat=remat)
     return net, {"mean": [0.5, 0.5, 0.5], "std": [0.5, 0.5, 0.5]}

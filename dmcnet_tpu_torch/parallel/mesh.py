@@ -12,7 +12,9 @@ batch:
     running statistics) are the global batch's; its backward all-reduces
     the two gradient sums.  `torch.nn.SyncBatchNorm` does this on CUDA
     only; this one runs on gloo and NCCL alike.  Eval mode reads the
-    running statistics, with no collective.
+    running statistics, with no collective.  A remat recompute
+    all-reduces again (as JAX's remat re-runs its `psum`) and leaves the
+    running statistics alone.
   * `sync_gradients` registers a pre-step hook on each optimizer that
     averages the `.grad` of its replicated parameters over the ranks, in
     one flat all-reduce per dtype, just before that optimizer steps.  So
@@ -45,6 +47,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from dmcnet_tpu_torch.models.layers import recomputing
 from dmcnet_tpu_torch.parallel.multihost import all_reduce
 
 
@@ -119,9 +122,14 @@ class GlobalBatchNorm(nn.modules.batchnorm._BatchNorm):
         if not (self.affine and self.track_running_stats):
             raise ValueError("GlobalBatchNorm needs affine BN modules that "
                              "track running statistics")
-        self.num_batches_tracked.add_(1)
-        momentum = (1.0 / float(self.num_batches_tracked)
-                    if self.momentum is None else self.momentum)
+        if recomputing():
+            # a remat recompute (`models.layers.remat_call`): the same
+            # collectives, and the running statistics left as they are
+            momentum = 0.0
+        else:
+            self.num_batches_tracked.add_(1)
+            momentum = (1.0 / float(self.num_batches_tracked)
+                        if self.momentum is None else self.momentum)
         return _GlobalBNFunction.apply(
             x, self.weight, self.bias, self.running_mean, self.running_var,
             momentum, self.eps, self.group)

@@ -6,6 +6,7 @@ host accumulation, and `coviar_compat.load` on an encoded clip."""
 import numpy as np
 import pytest
 import torch
+from test_torch_train import _two_torch_threads  # noqa: F401
 
 from dmcnet_tpu.codec import accumulate as jacc
 from dmcnet_tpu.codec import coviar_compat as jcompat

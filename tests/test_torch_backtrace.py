@@ -8,6 +8,7 @@ CUDA kernels are bit-equal to the plain versions."""
 import numpy as np
 import pytest
 import torch
+from test_torch_train import _two_torch_threads  # noqa: F401
 
 from dmcnet_tpu.codec.semantics import accumulate_gop_numpy
 from dmcnet_tpu.codec.synthetic import dense_mv_maps, synthetic_gop

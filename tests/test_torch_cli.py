@@ -4,7 +4,9 @@ tests/test_cli_e2e.py:16-44, and both packages' train and test CLIs from
 one initialisation.
 
 The shared initialisation is written by the JAX package's
-`save_reference_checkpoint` and passed to both train CLIs as `--weights`;
+`save_reference_checkpoint` and passed to both train CLIs as `--weights`,
+which fills every tensor, so the JAX CLIs' own eager flax init is swapped
+for zeros of its shapes (`zero_flax_init`);
 `--workers 1` makes the data layers' draw counters advance in the same
 order, so both see the same videos, frames and crops.  Two epochs, the
 first in the freeze phase, one batch each; `SAVE_FREQ` is set to 1 in both
@@ -40,6 +42,7 @@ import pytest
 import torch
 from PIL import Image
 from test_torch_train import _two_torch_threads  # noqa: F401 (autouse)
+from test_torch_train import flax_init
 
 from dmcnet_tpu_torch.codec.mpeg4 import encode_mpeg4
 
@@ -109,6 +112,29 @@ def _test_args(corpus, weights, scores):
         "--test-list", corpus["list"], "--weights", weights,
         "--test_segments", "2", "--test-crops", "1", "--input_size",
         str(SIZE), "--save-scores", scores]
+
+
+def zero_flax_init(mp, *classes):
+    """Make `init` of each flax Module class in `classes` return zeros of
+    its variables' shapes (`jax.eval_shape`) instead of running eagerly,
+    ~20 s a call on an 8-core CPU.  Only around JAX CLI runs whose
+    checkpoint (`--weights`) fills every parameter and statistic, which
+    then overwrites the zeros as it overwrites an init."""
+    import functools
+
+    import flax.linen as fnn
+    import jax
+    import jax.numpy as jnp
+
+    def zeros_init(self, rngs, *args, **kwargs):
+        shapes = jax.eval_shape(functools.partial(fnn.Module.init, self,
+                                                  **kwargs), rngs, *args)
+        # numpy zeros put on the device: no program compiled per shape
+        return jax.tree.map(lambda x: jnp.asarray(np.zeros(x.shape, x.dtype)),
+                            shapes)
+
+    for cls in classes:
+        mp.setattr(cls, "init", zeros_init)
 
 
 def _scores(path):
@@ -277,8 +303,8 @@ def test_train_and_test_clis_match_jax(corpus, tmp_path, monkeypatch):
 
     fmodel = FlaxDMCNet(num_class=51, num_segments=2,
                         arch_estimator="DenseNetTiny", gen_flow_or_delta=1)
-    variables = jax.jit(fmodel.init, static_argnames="train")(
-        jax.random.key(3), jnp.zeros((1, 1, SIZE, SIZE, 2)),
+    variables = flax_init(
+        fmodel, jax.random.key(3), jnp.zeros((1, 1, SIZE, SIZE, 2)),
         jnp.zeros((1, 1, SIZE, SIZE, 3)), train=False)
     init = str(tmp_path / "init.pth.tar")
     export_torch.save_reference_checkpoint(types.SimpleNamespace(
@@ -306,6 +332,7 @@ def test_train_and_test_clis_match_jax(corpus, tmp_path, monkeypatch):
     monkeypatch.setattr(train_cli, "save_checkpoint", port_save)
     monkeypatch.setattr(jax_train_cli, "SAVE_FREQ", 1)
     monkeypatch.setattr(train_cli, "SAVE_FREQ", 1)
+    zero_flax_init(monkeypatch, FlaxDMCNet)
     jax_prefix = str(tmp_path / "jax")
     jax_train_cli.main(_train_args(corpus, jax_prefix) + COMPARE_FLAGS + [
         "--weights", init, "--save-reference-ckpt", "1",

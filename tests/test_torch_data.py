@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train import _two_torch_threads  # noqa: F401
 
 from dmcnet_tpu.data import color as jcolor
 from dmcnet_tpu.data import dmc_dataset as jds

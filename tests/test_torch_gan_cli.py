@@ -14,8 +14,11 @@ CLI against CLI: the JAX command's variables at flax's shapes drawn with
 numpy (tests/test_torch_train.py `_draw`) are written by the JAX package's
 `save_reference_checkpoint` and passed to both train commands as
 `--weights`; `--workers 1` keeps both data layers on one stream of videos,
-frames and crops.  Two epochs, the first frozen; both commands save after
-each epoch (`SAVE_FREQ` = 1) and the test keeps each saved state dict.  The
+frames and crops.  Every JAX command here loads a checkpoint that fills
+each variable, so its eager flax init is swapped for zeros of its shapes
+(tests/test_torch_cli.py `zero_flax_init`).  Two epochs, the first
+frozen; both commands save after each epoch (`SAVE_FREQ` = 1) and the
+test keeps each saved state dict.  The
 discriminators' dropout is off on both sides (tests/test_torch_gan.py
 `dropout_off`, `jax_dropout_off`): the two frameworks cannot draw the same
 masks.  Each group has its own step size (lr 1e-3; classifier 0.5,
@@ -38,7 +41,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
-from test_torch_cli import _is_buffer
+from test_torch_cli import _is_buffer, zero_flax_init
 from test_torch_gan import dropout_off, jax_dropout_off
 from test_torch_i3d_data import panning_canvas
 from test_torch_train import _draw, _two_torch_threads  # noqa: F401
@@ -266,6 +269,7 @@ def gan_runs(corpus, tmp_path_factory):
                    lambda *a, **kw: dropout_off(build_port(*a, **kw)))
         mp.setattr(jax_train_cli, "SAVE_FREQ", 1)
         mp.setattr(train_cli, "SAVE_FREQ", 1)
+        zero_flax_init(mp, FlaxDMCNet)
         jax_prefix = str(tmp / "jax")
         with jax_dropout_off():
             jax_train_gan.main(_train_args(corpus, jax_prefix) + GAN_FLAGS + [
@@ -362,6 +366,7 @@ def test_test_clis_g_adversarial_accuracy_match_jax(gan_runs, corpus,
     margins, so that 25-75% of the rows read real and no row lies near the
     boundary."""
     from dmcnet_tpu.cli import test as jax_test_cli
+    from dmcnet_tpu.models import DMCNet as FlaxDMCNet
     from dmcnet_tpu_torch.cli import test as test_cli
     from dmcnet_tpu_torch.models import discriminators as tdisc
 
@@ -391,8 +396,10 @@ def test_test_clis_g_adversarial_accuracy_match_jax(gan_runs, corpus,
     ckpt = str(tmp_path / "balanced.pth.tar")
     torch.save(payload, ckpt)
 
-    jax_test_cli.main(_test_args(corpus, ckpt, str(tmp_path / "jax"))
-                      + ["--arch_d", "Discriminator"])
+    with pytest.MonkeyPatch.context() as mp:
+        zero_flax_init(mp, FlaxDMCNet)
+        jax_test_cli.main(_test_args(corpus, ckpt, str(tmp_path / "jax"))
+                          + ["--arch_d", "Discriminator"])
     want = _g_adv(capsys.readouterr().out)
     test_cli.main(port_args(ckpt, str(tmp_path / "port")))
     got = _g_adv(capsys.readouterr().out)
@@ -411,6 +418,7 @@ def test_plain_scores_match_jax(corpus, tmp_path, representation):
     """test --plain 1 on a 2-channel CoViAR-style TSN checkpoint: the flow
     and mv slots hold 2 channels, and both commands score alike."""
     from dmcnet_tpu.cli import test as jax_test_cli
+    from dmcnet_tpu.models import PlainTSN as FlaxPlainTSN
     from dmcnet_tpu_torch.cli import test as test_cli
     from dmcnet_tpu_torch.models.tsn import PlainTSN
 
@@ -422,7 +430,9 @@ def test_plain_scores_match_jax(corpus, tmp_path, representation):
     args = {side: _test_args(corpus, weights, str(tmp_path / side),
                              representation) + ["--plain", "1"]
             for side in ("jax", "port")}
-    jax_test_cli.main(args["jax"])
+    with pytest.MonkeyPatch.context() as mp:
+        zero_flax_init(mp, FlaxPlainTSN)
+        jax_test_cli.main(args["jax"])
     test_cli.main(args["port"] + ["--device", "cpu"])
     s_jax, l_jax, n_jax = _scores(str(tmp_path / "jax.npz"))
     s_port, l_port, n_port = _scores(str(tmp_path / "port.npz"))

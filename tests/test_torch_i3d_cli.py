@@ -128,7 +128,7 @@ def test_evaluate_cli_matches_jax(corpus, checkpoints, tmp_path,
     # takes over a minute on this CPU, so it gets zeros of the same shapes.
     init = jax_cli.init_i3d_variables
     monkeypatch.setattr(jax_cli, "init_i3d_variables", lambda *a: jax.tree.map(
-        lambda s: jnp.zeros(s.shape, s.dtype),
+        lambda s: jnp.asarray(np.zeros(s.shape, s.dtype)),
         jax.eval_shape(lambda: init(*a))))
     jax_ckpt, port_ckpt = checkpoints
     jf, tf = str(tmp_path / "jax_scores"), str(tmp_path / "port_scores")
@@ -153,7 +153,7 @@ def test_evaluate_cli_matches_jax(corpus, checkpoints, tmp_path,
         assert float(got["top1"]) == float(want["top1"]) == top1_t == top1_j
 
 
-def test_refused_flags_raise(corpus, checkpoints, tmp_path):
+def test_refused_flags_raise(corpus, checkpoints, tmp_path, monkeypatch):
     """Flags that raised before their slice was ported.  `--load-weights`
     of the JAX package's file and of a step directory of the port's
     `--ckpt-backend orbax` score exactly as the port's torch file of the
@@ -172,6 +172,9 @@ def test_refused_flags_raise(corpus, checkpoints, tmp_path):
     orbax_dir = str(tmp_path / "i3d_ep-0001.pth.orbax")
     save_checkpoint_dcp(net, {"epoch": 1, "top1": 0.0, "stage2": True},
                         orbax_dir)
+    # the spawned ranks' torch threads: one each, as the suite's other
+    # multi-process tests run theirs (tests/test_torch_parallel.py)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     scores = []
     for weights, extra in ((port_ckpt, []), (jax_ckpt, []), (orbax_dir, []),
                            (port_ckpt, ["--shard-time", "1", "--gpus", "0",

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 from PIL import Image
+from test_torch_train import _two_torch_threads  # noqa: F401
 
 from dmcnet_tpu_torch.codec.mpeg4 import NativeCodecUnavailable, encode_mpeg4
 from dmcnet_tpu_torch.data import color as tcolor

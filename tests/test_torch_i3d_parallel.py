@@ -330,7 +330,9 @@ def _jax_reference():
             params=p64, batch_stats=to64(stats),
             opt_cls=opts["cls"].init(p64), opt_gf=opts["gf"].init(p64),
             opt_d=opts["d"].init(p64),
-            grad_acc=jax.tree.map(jnp.zeros_like, p64)), mesh)
+            # numpy zeros put on the device: no program compiled per shape
+            grad_acc=jax.tree.map(lambda a: jnp.asarray(np.zeros(
+                a.shape, a.dtype)), p64)), mesh)
         f64 = jnp.float64
         batches = [shard_batch(_micro_np(i), mesh, batch_axis=1)
                    for i in range(len(STEPS))]

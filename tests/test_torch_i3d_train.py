@@ -40,6 +40,7 @@ import contextlib
 import functools
 import io
 import logging
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -79,6 +80,14 @@ _D_METRICS = ("loss", "loss_cls", "loss_adv", "top1", "top5", "acc_D_adv")
 _G_METRICS = ("loss", "loss_cls", "loss_mse", "top1", "top5")
 
 
+def _device_zeros(x):
+    """`jnp.zeros_like(x)` without compiling a program for each shape:
+    numpy zeros put on the device."""
+    import jax.numpy as jnp
+
+    return jnp.asarray(np.zeros(x.shape, x.dtype))
+
+
 @functools.lru_cache(maxsize=None)
 def _flax_i3d():
     """(flax I3D with generator and discriminator, params, batch_stats) at
@@ -97,7 +106,7 @@ def _flax_i3d():
     return net, v["params"], v["batch_stats"]
 
 
-def _port_i3d(dtype=torch.float64, dropout_prob=0.0):
+def _port_i3d(dtype=torch.float64, dropout_prob=0.0, remat=False):
     """The port's I3D with `_flax_i3d`'s weights, discriminator dropout
     off, in `dtype`."""
     _, params, stats = _flax_i3d()
@@ -105,7 +114,7 @@ def _port_i3d(dtype=torch.float64, dropout_prob=0.0):
                              num_classes=NUM_CLASS,
                              arch_estimator="DenseNetTiny",
                              arch_d="Discriminator", input_size=HW,
-                             dropout_prob=dropout_prob)
+                             dropout_prob=dropout_prob, remat=remat)
     net.load_state_dict(_bridge64(params, stats))
     return dropout_off(net).to(dtype)
 
@@ -322,17 +331,31 @@ def _jax_steps(case):
             params=p64, batch_stats=to64(stats),
             opt_cls=opts["cls"].init(p64), opt_gf=opts["gf"].init(p64),
             opt_d=opts["d"].init(p64) if gan else None,
-            grad_acc=jax.tree.map(jnp.zeros_like, p64) if gan else None)
-        d_step, g_step = (jax.jit(f) for f in make_i3d_steps(
-            net, opts, adv=ADV, jit=False))
+            grad_acc=jax.tree.map(_device_zeros, p64) if gan else None)
         f64 = jnp.float64
+        batches = [{k: jnp.asarray(v) for k, v in _micro_np(i).items()}
+                   for i in range(len(steps))]
+
+        def args(i, drop):
+            return (batches[i], jax.random.key(i), f64(LR * scale),
+                    f64(LR1 * scale), f64(LR_D * scale), f64(WD),
+                    jnp.asarray(drop))
+
+        # the case's D and G programs compile in two threads
+        # (tests/test_torch_i3d_parallel.py): XLA's compiles overlap
+        jitted = dict(zip("dg", (jax.jit(f) for f in make_i3d_steps(
+            net, opts, adv=ADV, jit=False))))
+
+        def compile_step(kind):
+            with jax.enable_x64(True):   # a thread-local setting
+                return jitted[kind].lower(state, *args(0, False)).compile()
+
+        kinds = sorted({kind for kind, _ in steps})
+        with ThreadPoolExecutor(len(kinds)) as pool:
+            compiled = dict(zip(kinds, pool.map(compile_step, kinds)))
         out = []
         for i, (kind, drop) in enumerate(steps):
-            batch = {k: jnp.asarray(v) for k, v in _micro_np(i).items()}
-            state, m = (d_step if kind == "d" else g_step)(
-                state, batch, jax.random.key(i), f64(LR * scale),
-                f64(LR1 * scale), f64(LR_D * scale), f64(WD),
-                jnp.asarray(drop))
+            state, m = compiled[kind](state, *args(i, drop))
             out.append((to_np(m), to_np(state.params),
                         to_np(state.batch_stats),
                         None if state.grad_acc is None
@@ -369,8 +392,11 @@ def _assert_state(model, params, stats, grad_acc, what):
             err_msg=f"{what}: the gradient of {k}")
 
 
-@pytest.mark.parametrize("case", list(STEP_CASES))
-def test_i3d_steps_match_jax(case):
+@pytest.mark.parametrize("case,remat", [
+    *(pytest.param(case, False, id=case) for case in STEP_CASES),
+    pytest.param("adam-gan", True, id="adam-gan-remat-1"),
+    pytest.param("adam-gan", "dots", id="adam-gan-remat-dots")])
+def test_i3d_steps_match_jax(case, remat):
     """Macro steps of two microbatches in float64 against
     `make_i3d_steps`: each step's metrics, then every parameter, BN running
     statistic and, with a GAN, the carried gradient (the JAX state's
@@ -378,10 +404,14 @@ def test_i3d_steps_match_jax(case):
     generator's D-phase gradient carried into the G step, the classifier's
     and the discriminator's G-phase gradients into the next D step, the
     classification term dropped in the first G step; the no-GAN case runs
-    two G steps with SGD, which step the classifier too."""
+    two G steps with SGD, which step the classifier too.  The GAN case,
+    whose D/G `.grad` carry and discriminator cover most of the step, also
+    runs the port with `remat` 1 and dots against the same JAX steps,
+    without remat (the JAX package's remat equals its plain step,
+    tests/test_i3d.py)."""
     optim, gan, scale, steps = STEP_CASES[case]
     want = _jax_steps(case)
-    model = _port_i3d()
+    model = _port_i3d(remat=remat)
     _, (d_step, g_step) = _port_steps(model, optim, gan)
     before = {k: v.clone() for k, v in model.named_parameters()}
     for i, ((kind, drop), (w_m, w_params, w_stats, w_grad)) in enumerate(

@@ -13,7 +13,8 @@ CLI against CLI: both commands start from one set of variables at flax's
 shapes drawn with numpy (tests/test_torch_i3d.py `draw_variables`), written
 as a reference-layout `.pth` and passed as `--pretrained_3d`; the JAX
 command's eager flax init (over a minute here) is replaced by zeros of its
-shapes, which the file then overwrites.  The flags are examples/i3d/train.sh
+shapes, which the file then overwrites, and it runs on one JAX device, as
+the port's command on one process.  The flags are examples/i3d/train.sh
 cut to size: Adam, DenseNetTiny, `--arch-d Discriminator --adv 1
 --detach 1 --fine_tune 0`, `--epoch-thre 1` so that the second epoch runs
 after the stage-2 swap, `--batch-size 2 --iter-size 2 --clip-length 8` and
@@ -159,9 +160,15 @@ def runs(corpus, tmp_path_factory):
     with pytest.MonkeyPatch.context() as mp:
         fix_jax_gop_positions(mp, jax_video_iter)
         mp.setattr(jax_cli, "init_i3d_variables", lambda *a: jax.tree.map(
-            lambda s: jnp.zeros(s.shape, s.dtype),
+            lambda s: jnp.asarray(np.zeros(s.shape, s.dtype)),
             jax.eval_shape(lambda: init_fn(*a))))
         mp.setattr(jax_cli, "save_checkpoint", jax_save)
+        # one device: the command would otherwise compile its steps for a
+        # data-parallel mesh of the virtual CPU devices dividing the batch
+        # (2 here), the same computation in 111 s against 88 s (alone, on
+        # an 8-core CPU)
+        one = jax.devices()[:1]
+        mp.setattr(jax_cli.jax, "devices", lambda *a: one)
         mp.setattr(train_i3d, "build_model",
                    _port_build(train_i3d.build_model))
         for side in ("jax", "port"):
@@ -351,14 +358,15 @@ def test_resume_epoch_across_epoch_thre(runs, corpus, tmp_path, monkeypatch,
 def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
     """train_hmdb51 and train_ucf101 set the dataset default; the
     parallel flags stop on one process where the JAX command does, and
-    `--fsdp` and the directory checkpoint backend reach the loop; the TPU workarounds
-    parse and say they change nothing, while `--packed-gen` reaches the
-    model; a missing --pretrained_3d raises; without CUDA the default
-    device raises."""
+    `--fsdp` and the directory checkpoint backend reach the loop;
+    `--accum-chunk` parses and says it changes nothing, while `--remat`
+    and `--packed-gen` reach the model; a missing --pretrained_3d raises;
+    without CUDA the default device raises."""
     got = {}
     monkeypatch.setattr(train_i3d, "train", lambda args, *a, **kw: got.update(
         dataset=args.dataset, backend=args.ckpt_backend,
-        packed=args.packed_gen) or type("R", (), {"best_top1": 1.0})())
+        packed=args.packed_gen, remat=args.remat)
+        or type("R", (), {"best_top1": 1.0})())
     monkeypatch.setattr(train_i3d, "creat", lambda *a, **kw: (None, None))
     base = FLAGS[2:] + _data_flags(corpus) + ["--device", "cpu"]
     train_ucf101.main(base)
@@ -366,14 +374,17 @@ def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
     train_hmdb51.main(base + ["--accum-chunk", "4", "--remat", "1",
                               "--packed-gen", "2"])
     assert got["dataset"] == "HMDB51" and got["packed"] == 2
+    assert got["remat"] == "1"
     out = capsys.readouterr().out
-    for flag in ("--accum-chunk", "--remat"):
-        assert f"{flag}: a TPU workaround" in out, flag
-    assert "--packed-gen:" not in out
-    args = train_i3d.build_parser().parse_args(FLAGS[2:] + ["--packed-gen",
-                                                            "2"])
-    net, _ = train_i3d.build_model(args, 5, 32)
-    assert net.gen_flow_model.packed == 2
+    assert "--accum-chunk: the JAX command's chunked accumulation" in out
+    assert "--remat" not in out and "--packed-gen:" not in out
+    for flag, remat in (("0", False), ("1", True), ("dots", "dots")):
+        args = train_i3d.build_parser().parse_args(
+            FLAGS[2:] + ["--packed-gen", "2", "--remat", flag])
+        net, _ = train_i3d.build_model(args, 5, 32)
+        assert net.gen_flow_model.packed == 2
+        assert net.mixed_3b.remat == net.mixed_5c.remat == remat, flag
+        assert net.gen_flow_model.remat is (remat is True), flag
     args = _train_args(corpus, tmp_path, [
         "--pretrained_3d", str(tmp_path / "missing.pth")])
     with pytest.raises(SystemExit, match="missing.pth does not exist"):
@@ -398,3 +409,28 @@ def test_aliases_and_refusals(corpus, monkeypatch, capsys, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_i3d.main(FLAGS[2:] + _data_flags(corpus))
+
+
+@pytest.mark.parametrize("extra,refused", [
+    (["--tp", "2"], True), (["--fsdp", "1"], True),
+    (["--fsdp", "1", "--accum-chunk", "2"], False)],
+    ids=["tp", "fsdp", "fsdp-whole-stack"])
+def test_accum_chunk_refusal(extra, refused, monkeypatch):
+    """`--accum-chunk` below `--iter-size` (2 in FLAGS) beside `--tp > 1`
+    or `--fsdp` stops with the JAX command's message
+    (dmcnet_tpu/cli/train_i3d.py:386-400) before any data or process is
+    touched; a chunk of the whole stack is no chunking and trains."""
+    ran = []
+    monkeypatch.setattr(train_i3d, "train", lambda *a, **kw: ran.append(1)
+                        or type("R", (), {"best_top1": 1.0})())
+    monkeypatch.setattr(train_i3d, "creat", lambda *a, **kw: (None, None))
+    argv = FLAGS[2:] + ["--device", "cpu", "--accum-chunk", "1"] + extra
+    if refused:
+        with pytest.raises(SystemExit, match="--accum-chunk composes with "
+                           "plain data parallelism only; --fsdp/--tp "
+                           "already cut per-chip residency"):
+            train_i3d.main(argv)
+        assert not ran
+    else:
+        train_i3d.main(argv)
+        assert ran

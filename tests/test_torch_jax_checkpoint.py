@@ -19,6 +19,7 @@ import os
 import pickle
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -295,10 +296,18 @@ def test_gan_resume_from_jax_matches_jax(tmp_path):
                            opt_cls=opts["cls"].init(p64),
                            opt_gf=opts["gf"].init(p64),
                            opt_d=opts["d"].init(p64))
-        d_step, g_step = (jax.jit(f) for f in make_gan_train_steps(
-            fmodel, opts, num_segments=S, jit=False, **LOSS_W))
         batch = {k: jnp.asarray(v) for k, v in _batch_np(np.float64).items()}
         rng, f64 = jax.random.key(1), jnp.float64
+        lrs = (f64(LR), f64(LR), f64(LR), f64(WD))
+        jitted = [jax.jit(f) for f in make_gan_train_steps(
+            fmodel, opts, num_segments=S, jit=False, **LOSS_W)]
+
+        def compile_step(fn):  # the D and G programs compile in two threads
+            with jax.enable_x64(True):   # a thread-local setting
+                return fn.lower(state, batch, rng, *lrs).compile()
+
+        with ThreadPoolExecutor(2) as pool:
+            d_step, g_step = pool.map(compile_step, jitted)
         state, _ = d_step(state, batch, rng, f64(LR), f64(0.0), f64(LR),
                           f64(WD))
         state, _ = g_step(state, batch, rng, f64(LR), f64(LR), f64(LR),

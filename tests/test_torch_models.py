@@ -9,6 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_train import _two_torch_threads  # noqa: F401
+from test_torch_train import flax_init
 
 from dmcnet_tpu.models import DMCNet as FlaxDMCNet
 from dmcnet_tpu_torch.models.tsn import DMCNet, segment_consensus
@@ -41,8 +43,8 @@ def test_dmcnet_matches_flax(arch_estimator):
     hw, n, num_class = 64, 2, 7
     fmodel = FlaxDMCNet(num_class=num_class, num_segments=1,
                         arch_estimator=arch_estimator, gen_flow_or_delta=1)
-    variables = jax.jit(fmodel.init, static_argnames="train")(
-        jax.random.key(0), jnp.zeros((1, 1, hw, hw, 2)),
+    variables = flax_init(
+        fmodel, jax.random.key(0), jnp.zeros((1, 1, hw, hw, 2)),
         jnp.zeros((1, 1, hw, hw, 3)), train=False)
     rng = np.random.default_rng(0)
     params, stats = _randomise_bn(jax.tree.map(np.asarray,

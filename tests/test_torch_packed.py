@@ -46,6 +46,7 @@ from dmcnet_tpu_torch.ops.backtrace import cell_mv_from_blocks
 from dmcnet_tpu_torch.serving import DMCPredictor
 from test_torch_serving import _encode_panning
 from test_torch_train import _two_torch_threads  # noqa: F401 (autouse)
+from test_torch_train import flax_init
 
 GEN_ATOL = 2e-4
 RES_RTOL = RES_ATOL = 2e-4
@@ -74,8 +75,8 @@ def flax_variables():
     the module's tests: numpy trees and the port's state_dict."""
     model = FlaxDMCNet(num_class=NUM_CLASS, num_segments=1,
                        arch_estimator="DenseNetTiny", gen_flow_or_delta=1)
-    variables = jax.jit(model.init, static_argnames="train")(
-        jax.random.key(0), jnp.zeros((1, 1, HW, HW, 2)),
+    variables = flax_init(
+        model, jax.random.key(0), jnp.zeros((1, 1, HW, HW, 2)),
         jnp.zeros((1, 1, HW, HW, 3)), train=False)
     variables = jax.tree.map(np.asarray, variables)
     return variables, state_dict_from_flax(variables["params"],

@@ -42,6 +42,7 @@ import pytest
 import torch
 from PIL import Image
 from test_pipeline_parallel import _conv_stage, _make_params
+from test_torch_cli import zero_flax_init
 from test_torch_i3d_data import panning_canvas
 from test_torch_train import _two_torch_threads  # noqa: F401 (autouse)
 from torch import nn
@@ -336,23 +337,15 @@ def jax_scores(corpus):
     """The JAX test command without --pp, for mv (with --viz 1) and for
     --plain 1 mv: {plain: (accuracy, scores file)}.  The command's eager
     flax `init` (about 25 s on this CPU) is swapped for zeros of its
-    shapes: the checkpoint overwrites every variable (tests/
-    test_torch_i3d_cli.py does the same)."""
-    import flax.linen as fnn
-
+    shapes (tests/test_torch_cli.py `zero_flax_init`): the checkpoint
+    overwrites every variable."""
     from dmcnet_tpu.cli import test as jax_test_cli
     from dmcnet_tpu.models import DMCNet as FlaxDMCNet
     from dmcnet_tpu.models import PlainTSN as FlaxPlainTSN
 
-    def zeros_init(self, rngs, *args, **kwargs):
-        shapes = jax.eval_shape(functools.partial(fnn.Module.init, self,
-                                                  **kwargs), rngs, *args)
-        return jax.tree.map(lambda x: jnp.zeros(x.shape, x.dtype), shapes)
-
     out = {}
     with pytest.MonkeyPatch.context() as mp:
-        for cls in (FlaxDMCNet, FlaxPlainTSN):
-            mp.setattr(cls, "init", zeros_init)
+        zero_flax_init(mp, FlaxDMCNet, FlaxPlainTSN)
         for plain in (False, True):
             path = str(corpus / f"jax_{int(plain)}")
             viz = [] if plain else ["--viz", "1", "--viz-dir",

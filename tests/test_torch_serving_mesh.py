@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 from test_torch_serving import ATOL, HW, NUM_CLASS, RTOL, _encode_panning
+from test_torch_train import _two_torch_threads  # noqa: F401
+from test_torch_train import flax_init
 
 from dmcnet_tpu_torch.codec.mpeg4 import VideoReader
 from dmcnet_tpu_torch.ops import backtrace as tbacktrace
@@ -36,8 +38,8 @@ def predictors():
 
     model = FlaxDMCNet(num_class=NUM_CLASS, num_segments=1,
                        arch_estimator="DenseNetTiny", gen_flow_or_delta=1)
-    variables = jax.jit(model.init, static_argnames="train")(
-        jax.random.key(0), jnp.zeros((1, 1, HW, HW, 2)),
+    variables = flax_init(
+        model, jax.random.key(0), jnp.zeros((1, 1, HW, HW, 2)),
         jnp.zeros((1, 1, HW, HW, 3)), train=False)
     jp = JaxPredictor(variables["params"], variables["batch_stats"],
                       num_class=NUM_CLASS, input_size=HW, pack=False,

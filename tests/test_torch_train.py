@@ -88,6 +88,19 @@ def _torch_batch(batch, device="cpu"):
     return out
 
 
+def flax_init(model, *args, **kwargs):
+    """`model.init(*args, **kwargs)` jitted, its program compiled without
+    LLVM's optimizations: init runs its program once, so the optimizing
+    compile of a DMCNet's ~100 random draws costs more CPU time than it
+    saves.  The draws are the same threefry bits; an unoptimized program
+    fuses no multiply-add, so a float32 kernel may come out 1 ulp apart
+    from the optimized init's, and both sides of a comparison share it."""
+    import jax
+
+    return jax.jit(model.init, static_argnames="train", compiler_options={
+        "xla_backend_optimization_level": 0})(*args, **kwargs)
+
+
 def _draw(path, shape, rng):
     """numpy values for one flax leaf: kernels N(0, 1/fan_in), BN scale and
     running variance in [0.5, 1.5), biases and running means N(0, 0.1), so

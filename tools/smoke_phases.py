@@ -5,7 +5,7 @@ than the whole smoke:
     python3 tools/smoke_phases.py pipeline utils
 
 Each name is a `<name>_phase(torch, bt, dev, gops, smi, workdir)` of
-`chip_smoke.py` (pipeline, utils, train, gan, dist, parallel,
+`chip_smoke.py` (pipeline, utils, train, gan, dist, parallel, i3d,
 i3d_train, packed).  The phases get the smoke's three synthetic 256x320 GOPs
 (16x16, 8x8 and 4x4 blocks, seed 0) and a temporary work directory, TF32
 off, as in the smoke; the card's name and power limit come first.
