@@ -1,0 +1,8 @@
+"""Device idle while `serving.h2d` is the open serving stage, as a share
+of the traced window (`program_spans.idle_pct`)."""
+
+from benchmark.program_spans import idle_pct
+
+
+def read(run):
+    return idle_pct(run, "serving.h2d")

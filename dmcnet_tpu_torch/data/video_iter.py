@@ -50,6 +50,7 @@ from dmcnet_tpu_torch.codec.mpeg4 import shared_reader_cache
 from dmcnet_tpu_torch.data import transforms as T
 from dmcnet_tpu_torch.data.dmc_dataset import GopCache
 from dmcnet_tpu_torch.data.sampling import SequentialSampling, get_gop_pos_i3d
+from dmcnet_tpu_torch.utils.profiling import span
 
 _CHANNELS = {"rgb": 3, "I": 3, "res": 3, "mv": 2, "flow": 2, "flow+mp4": 7}
 # Decode errors a clip is resampled on (those `CoviarDataset` zero-fills).
@@ -264,9 +265,16 @@ def i3d_augment_batch(batch, modality="flow+mp4", ds_factor=0,
     the caller passes "cpu").
 
     Returns dict(mv, residual, flow, label) for flow+mp4, else dict(x,
-    label): (B, C, T, input_size, input_size) float32 and (B,) int64."""
+    label): (B, C, T, input_size, input_size) float32 and (B,) int64.
+    The copy runs inside the `data.i3d_h2d` span (`utils.profiling.span`),
+    which counts the u8 `bytes` copied and the u8 bytes of the crops the
+    model reads (`kept`)."""
     dev = resolve_device(device)
-    frames = torch.from_numpy(np.ascontiguousarray(batch["frames"])).to(dev)
+    b, t, _, _, c = batch["frames"].shape
+    with span("data.i3d_h2d", bytes=batch["frames"].nbytes,
+              kept=b * t * input_size * input_size * c):
+        frames = torch.from_numpy(
+            np.ascontiguousarray(batch["frames"])).to(dev)
     frames = frames.permute(0, 1, 4, 2, 3).float()  # (B, T, C, H, W)
     out = T.apply_crops(frames, batch["scales"], batch["translations"],
                         batch["flips"], out_size=input_size,

@@ -56,6 +56,7 @@ from dmcnet_tpu_torch.models.layers import (
     remat_call,
     window3d,
 )
+from dmcnet_tpu_torch.utils.profiling import span
 
 
 class Unit3D(nn.Module):
@@ -228,13 +229,21 @@ class I3D(nn.Module):
         return self.classifier(self.dropout(x))
 
     def forward(self, inp, node="logit", detach=False):
+        """The `node` output of the clip `inp`.  The generator and the
+        backbone each run inside a span with its stream time,
+        `i3d.generator` and `i3d.backbone` (`utils.profiling.span`).
+        Under `remat` the recompute runs in the backward, outside both
+        spans, so a span's stream time holds the forward only."""
         if node == "D":
             return self.discriminator(inp)
         if self.gen_flow_model is not None:
-            inp = self.generate(inp)
+            with span("i3d.generator", device=inp.device):
+                inp = self.generate(inp)
         if node == "gen_flow":
             return inp
-        logits = self.features_to_logits(inp.detach() if detach else inp)
+        with span("i3d.backbone", device=inp.device):
+            logits = self.features_to_logits(inp.detach() if detach
+                                             else inp)
         if node == "flow+logit":
             return logits, inp
         return logits

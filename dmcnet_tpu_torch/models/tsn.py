@@ -29,6 +29,7 @@ from torch import nn
 from dmcnet_tpu_torch.models.discriminators import make_discriminator
 from dmcnet_tpu_torch.models.generators import make_estimator
 from dmcnet_tpu_torch.models.resnet import resnet18, resnet34
+from dmcnet_tpu_torch.utils.profiling import span
 
 _BACKBONES = {"resnet18": resnet18, "resnet34": resnet34}
 
@@ -93,24 +94,31 @@ class DMCNet(nn.Module):
             self.discriminator = make_discriminator(arch_d, input_size)
 
     def generate(self, input_mv, input_residual):
-        """-> gen_flow, or (gen_flow, att_flow) with `att`."""
-        input_mv = _flatten_segments(input_mv)
-        input_residual = _flatten_segments(input_residual)
-        f = self.gen_flow_ds_factor
-        if f:
-            input_mv = F.avg_pool2d(input_mv, f, f)
-            input_residual = F.avg_pool2d(input_residual, f, f)
-        out = self.gen_flow_model(torch.cat([input_mv, input_residual],
-                                            dim=1))
-        gen_flow, att_flow = out if self.att else (out, None)
-        if self.gen_flow_or_delta == 1:
-            gen_flow = gen_flow + input_mv
-        if f:
-            gen_flow = gen_flow.repeat(1, 1, f, f)
-        return (gen_flow, att_flow) if self.att else gen_flow
+        """-> gen_flow, or (gen_flow, att_flow) with `att`; inside the
+        `serving.generator` span (`utils.profiling.span`, with its stream
+        time), as `classify` is inside the `serving.classifier` one: the
+        serving stages of the unfolded forward, recorded in training
+        too."""
+        with span("serving.generator", device=input_mv.device):
+            input_mv = _flatten_segments(input_mv)
+            input_residual = _flatten_segments(input_residual)
+            f = self.gen_flow_ds_factor
+            if f:
+                input_mv = F.avg_pool2d(input_mv, f, f)
+                input_residual = F.avg_pool2d(input_residual, f, f)
+            out = self.gen_flow_model(torch.cat([input_mv, input_residual],
+                                                dim=1))
+            gen_flow, att_flow = out if self.att else (out, None)
+            if self.gen_flow_or_delta == 1:
+                gen_flow = gen_flow + input_mv
+            if f:
+                gen_flow = gen_flow.repeat(1, 1, f, f)
+            return (gen_flow, att_flow) if self.att else gen_flow
 
     def classify(self, gen_flow):
-        return self.base_model(gen_flow if self.arch_d else gen_flow.detach())
+        with span("serving.classifier", device=gen_flow.device):
+            return self.base_model(gen_flow if self.arch_d
+                                   else gen_flow.detach())
 
     def forward(self, input_mv, input_residual, input_flow=None):
         out = self.generate(input_mv, input_residual)

@@ -52,6 +52,7 @@ from dmcnet_tpu_torch.models.tsn import DMCNet
 from dmcnet_tpu_torch.ops.backtrace import backtrace_warp_batch
 from dmcnet_tpu_torch.ops.packed_generator import PackedDenseEstimator
 from dmcnet_tpu_torch.ops.packed_resnet import PackedResNet18
+from dmcnet_tpu_torch.utils.profiling import span
 
 
 class DMCPredictor:
@@ -149,17 +150,21 @@ class DMCPredictor:
         if self.packed_cls is not None:
             # the normalize and +mv live in the packed weights: raw u8 in
             x = torch.cat([mv, res], -1).permute(0, 3, 1, 2)
-            return self.packed_cls[replica](
-                self.packed[replica](x.to(torch.bfloat16))).float()
+            with span("serving.generator", device=x.device):
+                dmc = self.packed[replica](x.to(torch.bfloat16))
+            with span("serving.classifier", device=x.device):
+                return self.packed_cls[replica](dmc).float()
         mv = ((mv.float() / 255.0 - 0.5) / MEAN_STD).permute(0, 3, 1, 2)
         res = ((res.float() / 255.0 - 0.5)
                / self._res_std[replica]).permute(0, 3, 1, 2)
         model = self.replicas[replica]
         if self.packed is not None:
             x = torch.cat([mv, res], 1).to(torch.bfloat16)
-            dmc = self.packed[replica](x).float()
-            return model.classify(dmc + mv if self.gen_flow_or_delta
-                                  else dmc)
+            with span("serving.generator", device=x.device):
+                dmc = self.packed[replica](x).float()
+                if self.gen_flow_or_delta:
+                    dmc = dmc + mv
+            return model.classify(dmc)
         logits, _ = model(mv, res)
         return logits
 
@@ -178,11 +183,12 @@ class DMCPredictor:
         (N, C) as numpy in input order."""
         parts = []
         for i, a, b in self._shares(len(mv)):
-            d = self.mesh[i]
-            parts.append(self._forward_u8(
-                torch.from_numpy(mv[a:b]).to(d),
-                torch.from_numpy(res[a:b]).to(d), replica=i))
-        return np.concatenate([p.cpu().numpy() for p in parts])
+            with span("serving.h2d"):
+                inputs = self._to_device((mv[a:b], res[a:b]), self.mesh[i])
+            with span("serving.enqueue"):
+                parts.append(self._forward_u8(*inputs, replica=i))
+        with span("serving.readback"):
+            return np.concatenate([p.cpu().numpy() for p in parts])
 
     def _chunk_ladder(self, chunk_gops):
         """GOP-batch sizes a chunk is padded to: power-of-2 multiples of
@@ -260,9 +266,13 @@ class DMCPredictor:
         for i, a, b in self._shares(g):
             fn = self._gop_program(b - a, tmax, h, w, cell, n_pick,
                                    replica=i)
-            out.append(fn(*self._to_device(self._pack_rows(
-                rows[a:b], b - a, tmax, h, w, cell, n_pick),
-                self.mesh[i])))
+            with span("serving.pack"):
+                arrays = self._pack_rows(rows[a:b], b - a, tmax, h, w, cell,
+                                         n_pick)
+            with span("serving.h2d"):
+                inputs = self._to_device(arrays, self.mesh[i])
+            with span("serving.enqueue"):
+                out.append(fn(*inputs))
         return out
 
     @staticmethod
@@ -370,32 +380,36 @@ class DMCPredictor:
                 raise ValueError(
                     f"{path}: stream does not qualify for the device "
                     "back-trace path")
-        mvs, ress, wts = [], [], []
-        reader = shared_reader_cache().get(path)
-        by_gop = self._segment_picks(reader, segments) if segments else None
-        gops = sorted(by_gop) if segments else range(reader.num_gops)
-        for g in gops:
-            frames, mv_maps = reader.decode_gop(g)
-            if len(frames) < 2:
-                continue
-            mv, res = gop_mv_residual_u8(
-                mv_maps, frames, True, 20 if self.mv_minmaxnorm else None)
-            if segments:
-                pick, w = by_gop[g]
-                pick = np.minimum(pick, len(frames) - 1)
-            else:
-                pick = np.linspace(1, len(frames) - 1,
-                                   min(frames_per_gop, len(frames) - 1))
-                pick = np.unique(np.round(pick).astype(int))
-                w = np.ones(len(pick), np.float32)
-            mvs.append(self._center_crop(mv[pick]))
-            ress.append(self._center_crop(res[pick]))
-            wts.append(w)
-        if not mvs:
-            raise ValueError(f"no usable GOPs in {path}")
+        with span("serving.gather"):
+            mvs, ress, wts = [], [], []
+            reader = shared_reader_cache().get(path)
+            by_gop = (self._segment_picks(reader, segments) if segments
+                      else None)
+            gops = sorted(by_gop) if segments else range(reader.num_gops)
+            for g in gops:
+                frames, mv_maps = reader.decode_gop(g)
+                if len(frames) < 2:
+                    continue
+                mv, res = gop_mv_residual_u8(
+                    mv_maps, frames, True,
+                    20 if self.mv_minmaxnorm else None)
+                if segments:
+                    pick, w = by_gop[g]
+                    pick = np.minimum(pick, len(frames) - 1)
+                else:
+                    pick = np.linspace(1, len(frames) - 1,
+                                       min(frames_per_gop, len(frames) - 1))
+                    pick = np.unique(np.round(pick).astype(int))
+                    w = np.ones(len(pick), np.float32)
+                mvs.append(self._center_crop(mv[pick]))
+                ress.append(self._center_crop(res[pick]))
+                wts.append(w)
+            if not mvs:
+                raise ValueError(f"no usable GOPs in {path}")
         lg = self._forward_u8_mesh(np.concatenate(mvs), np.concatenate(ress))
-        wts = np.concatenate(wts)
-        return (lg * wts[:, None]).sum(axis=0) / wts.sum()
+        with span("serving.reduce"):
+            wts = np.concatenate(wts)
+            return (lg * wts[:, None]).sum(axis=0) / wts.sum()
 
     def _gather_video_device(self, path, frames_per_gop, segments=None):
         """Host side of the device path for one video: entropy decode +
@@ -525,7 +539,22 @@ class DMCPredictor:
         Returns score vectors aligned with `paths`; a duplicate path is
         scored once and later positions get a fresh copy.  Under "auto",
         videos that do not qualify for the device path take the host path
-        individually."""
+        individually.
+
+        Under a running profiler the call is one `serving.request` span
+        whose stages are `serving.gather` (each video's host gather; on a
+        worker thread of `host_workers` a root of its own), `serving.pack`,
+        `serving.h2d` and `serving.enqueue` (each chunk's packing, copy and
+        launch; `serving.generator` and `serving.classifier` inside the
+        last), `serving.readback` and `serving.reduce`
+        (`utils.profiling.span`)."""
+        with span("serving.request"):
+            return self._predict_videos(paths, frames_per_gop, backend,
+                                        chunk_gops, host_workers, on_error,
+                                        segments)
+
+    def _predict_videos(self, paths, frames_per_gop, backend, chunk_gops,
+                        host_workers, on_error, segments):
         from dmcnet_tpu_torch.ops._build import (
             KernelBuildError,
             KernelLaunchError,
@@ -556,8 +585,9 @@ class DMCPredictor:
             if backend not in ("auto", "device"):
                 return None, None
             try:
-                return self._gather_video_device(p, frames_per_gop,
-                                                 segments=segments), None
+                with span("serving.gather"):
+                    return self._gather_video_device(p, frames_per_gop,
+                                                     segments=segments), None
             except (OSError, ValueError, IndexError) as exc:
                 return None, exc
 
@@ -624,15 +654,17 @@ class DMCPredictor:
         for hw, buf in pending.items():
             if buf:  # flush the ragged tail chunk of each geometry
                 dispatch(hw, buf)
-        for parts, chunk, n_pick in in_flight:
-            lg = np.concatenate([p[0].cpu().numpy() for p in parts])
-            lg = lg.reshape(-1, n_pick, lg.shape[-1])
-            for i, (p, *_, pick, w_, c, t) in enumerate(chunk):
-                per_video[p].append((lg[i, :len(pick)], w_))
-        for p, rows in per_video.items():
-            lg = np.concatenate([r for r, _ in rows])
-            wt = np.concatenate([w_ for _, w_ in rows])
-            results[p] = (lg * wt[:, None]).sum(axis=0) / wt.sum()
+        with span("serving.readback"):
+            for parts, chunk, n_pick in in_flight:
+                lg = np.concatenate([p[0].cpu().numpy() for p in parts])
+                lg = lg.reshape(-1, n_pick, lg.shape[-1])
+                for i, (p, *_, pick, w_, c, t) in enumerate(chunk):
+                    per_video[p].append((lg[i, :len(pick)], w_))
+        with span("serving.reduce"):
+            for p, rows in per_video.items():
+                lg = np.concatenate([r for r, _ in rows])
+                wt = np.concatenate([w_ for _, w_ in rows])
+                results[p] = (lg * wt[:, None]).sum(axis=0) / wt.sum()
         seen = set()
         out = []
         for p in order:

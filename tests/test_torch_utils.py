@@ -71,20 +71,20 @@ def _steps(path):
 
 def test_profiling_helpers(tmp_path):
     """`trace` writes a Chrome trace whose steps are `prof.step()`'s, with
-    an `annotate` span inside; `step_timer` measures its block."""
-    from dmcnet_tpu_torch.utils.profiling import annotate, step_timer, trace
+    a `span` inside; `step_timer` measures its block."""
+    from dmcnet_tpu_torch.utils.profiling import span, step_timer, trace
 
     x = torch.ones(64, 64)
     with trace(str(tmp_path / "prof"), device="cpu") as prof:
         for _ in range(3):
-            with annotate("matmul"):
+            with span("matmul"):
                 x = x @ x / 64
             prof.step()
     assert os.path.dirname(prof.trace_path) == str(tmp_path / "prof")
     assert _steps(prof.trace_path) == [0, 1, 2, 3]
     with open(prof.trace_path) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "matmul" in names
+    assert "dmc.matmul" in names
     with step_timer(sync=x) as t:
         y = x @ x
     assert t.elapsed > 0 and y.shape == (64, 64)
