@@ -151,8 +151,28 @@ def _weight_mat(in_size, out_size, scale, translation):
     return torch.where(inside[:, None, :], weights, torch.zeros_like(weights))
 
 
+def crop_box(scales_hw, translations_hw, out_size, h, w):
+    """The rows [y0, y1) and columns [x0, x1) of (h, w) frames that
+    `apply_crops` reads for any of a batch's specs (numpy (B, 2)), worked
+    out on the host: output j samples input (j + 0.5 - t) / s - 0.5, whose
+    weights are non-zero within 1 of it.  One pixel more on each side
+    guards against the device's float32 rounding of the sample; the box
+    is clipped to the frame and never empty.  Any box that covers the
+    weights' support gives the same crops."""
+    s = np.asarray(scales_hw, np.float64)[..., None]
+    t = np.asarray(translations_hw, np.float64)[..., None]
+    ends = (np.array([0.5, out_size - 0.5]) - t) / s - 0.5   # (B, 2, 2)
+    box = []
+    for axis, size in enumerate((h, w)):
+        lo = int(np.floor(ends[:, axis].min())) - 1
+        hi = int(np.ceil(ends[:, axis].max())) + 2
+        lo = min(max(lo, 0), size - 1)
+        box += [lo, min(max(hi, lo + 1), size)]
+    return tuple(box)
+
+
 def apply_crops(frames, scales_hw, translations_hw, flips, out_size=224,
-                negate_channels=(0, 2), vflips=None):
+                negate_channels=(0, 2), vflips=None, box=None):
     """Batched crop + resize + flip.
 
     frames (B, S, C, H, W) float32 group frames (encoded domain 0..255);
@@ -160,16 +180,22 @@ def apply_crops(frames, scales_hw, translations_hw, flips, out_size=224,
     bool.  `negate_channels` are mapped to 256 - x on a mirror: (0, 2) for
     the [flow, mv, residual] layout (flow_x, mv_x), (0,) for iframe groups.
     `vflips` (B,) bool are vertical flips with no channel negation
-    (reference RandomVerticalFlip, image_transforms.py:202-212).  Returns
+    (reference RandomVerticalFlip, image_transforms.py:202-212).  `box`
+    (y0, x0, H, W): `frames` hold rows y0.. and columns x0.. of (H, W)
+    frames (a `crop_box`), resampled with the whole frame's weights cut to
+    the box: the rows and columns left out weigh exactly 0.  Returns
     (B, S, C, out_size, out_size) float32 on the frames' device."""
     dev = frames.device
     scales_hw = torch.as_tensor(scales_hw, dtype=torch.float32, device=dev)
     translations_hw = torch.as_tensor(translations_hw, dtype=torch.float32,
                                       device=dev)
     flips = torch.as_tensor(flips, dtype=torch.bool, device=dev)
-    h, w = frames.shape[-2:]
-    wh = _weight_mat(h, out_size, scales_hw[:, 0], translations_hw[:, 0])
-    ww = _weight_mat(w, out_size, scales_hw[:, 1], translations_hw[:, 1])
+    bh, bw = frames.shape[-2:]
+    y0, x0, h, w = (0, 0, bh, bw) if box is None else box
+    wh = _weight_mat(h, out_size, scales_hw[:, 0],
+                     translations_hw[:, 0])[:, y0:y0 + bh]
+    ww = _weight_mat(w, out_size, scales_hw[:, 1],
+                     translations_hw[:, 1])[:, x0:x0 + bw]
     out = torch.einsum("bschw,bwq->bschq", frames, ww)
     out = torch.einsum("bschq,bhp->bscpq", out, wh)
     mirrored = out.flip(-1)

@@ -259,6 +259,89 @@ def test_augment_matches(J, corpus, modality, ds_factor, monkeypatch):
     np.testing.assert_array_equal(got["label"].numpy(), want["label"])
 
 
+def whole_frame_augment(batch, ds_factor, size, device="cpu"):
+    """`i3d_augment_batch`'s flow+mp4 outputs computed over the whole
+    frames, the box left out: `apply_crops` on every pixel."""
+    frames = torch.from_numpy(batch["frames"]).to(device)
+    out = TT.apply_crops(frames.permute(0, 1, 4, 2, 3).float(),
+                         batch["scales"], batch["translations"],
+                         batch["flips"], size, (0, 2))
+    x = (out / 255.0 - 0.5) / 0.5
+    flow = x[:, :, 0:2]
+    if ds_factor:
+        flow = TT.blockify_flow(flow, ds_factor)
+    return {k: v.permute(0, 2, 1, 3, 4) for k, v in (
+        ("flow", flow), ("mv", x[:, :, 2:4]), ("residual", x[:, :, 4:7]))}
+
+
+def crop_batch(rng, t, h, w, size, crops):
+    """A flow+mp4 batch of random u8 clips (t, h, w) with one crop spec
+    (row, col, crop_h, crop_w, flip) a clip, resized to `size`."""
+    specs = [TT.crop_spec_to_scale_translate(oh, ow, ch, cw, size)
+             for oh, ow, ch, cw, _ in crops]
+    return {"frames": rng.integers(0, 256, (len(crops), t, h, w, 7),
+                                   dtype=np.uint8),
+            "scales": np.asarray([s[:2] for s in specs], np.float32),
+            "translations": np.asarray([s[2:] for s in specs], np.float32),
+            "flips": np.asarray([c[4] for c in crops]),
+            "label": np.zeros(len(crops), np.int32)}
+
+
+# (frame h, w, size, crops, bit-equal): centre crops at scale 1 weigh one
+# pixel by exactly 1, so the box changes no bit; fractional crops sum their
+# products over another length
+BOX_CASES = {
+    "centre-360x480": (360, 480, 224, [(68, 128, 224, 224, False)], True),
+    "centre-odd": (61, 77, 48, [(6, 14, 48, 48, False)], True),
+    "train-scales": (64, 80, 48, [(3, 7, 40, 40, True),
+                                  (1, 2, 60, 62, False)], False),
+    "edge-top": (64, 80, 48, [(0, 12, 56, 52, True)], False),
+    "edge-bottom": (64, 80, 48, [(8, 12, 56, 52, False)], False),
+    "edge-left": (64, 80, 48, [(4, 0, 56, 52, True)], False),
+    "edge-right": (64, 80, 48, [(4, 28, 56, 52, False)], False),
+    "three-clips": (64, 80, 48, [(2, 3, 40, 44, False),
+                                 (20, 30, 44, 40, True),
+                                 (10, 5, 48, 48, False)], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BOX_CASES))
+def test_boxed_augment_matches_whole_frame(case):
+    """Only the box the crops read is copied: the outputs equal the
+    whole-frame computation, the box covers every pixel with a non-zero
+    weight and at most one more on each side, and the `data.i3d_h2d` span
+    counts the box's bytes, unpinned on the CPU."""
+    from test_torch_spans import traced
+
+    h, w, size, crops, exact = BOX_CASES[case]
+    batch = crop_batch(np.random.default_rng(len(case)), 2, h, w, size,
+                       crops)
+    got, log, _ = traced(lambda: tvi.i3d_augment_batch(
+        batch, "flow+mp4", 16, input_size=size, device="cpu"))
+    want = whole_frame_augment(batch, 16, size)
+    for k in ("flow", "mv", "residual"):
+        if exact:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+        else:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                       rtol=0, atol=ATOL_NORM, err_msg=k)
+    box = TT.crop_box(batch["scales"], batch["translations"], size, h, w)
+    for axis, (lo, hi) in enumerate((box[:2], box[2:])):
+        weights = TT._weight_mat(
+            (h, w)[axis], size, torch.from_numpy(batch["scales"][:, axis]),
+            torch.from_numpy(batch["translations"][:, axis]))
+        rows = torch.nonzero(weights.sum(dim=(0, 2))).flatten()
+        first, last = int(rows.min()), int(rows.max())
+        assert max(first - 1, 0) <= lo <= first
+        assert last < hi <= min(last + 2, (h, w)[axis])
+    b, t, c = len(crops), 2, 7
+    assert [e["counts"] for e in log if e["name"] == "data.i3d_h2d"] == [
+        {"bytes": b * t * (box[1] - box[0]) * (box[3] - box[2]) * c,
+         "kept": b * t * size * size * c, "pinned": 0}]
+    if case == "centre-360x480":
+        assert box[1] - box[0] == box[3] - box[2] == size + 2
+
+
 def test_creat_matches(J, corpus, monkeypatch):
     fix_jax_gop_positions(monkeypatch, J.vi)
     kw = dict(video_prefix=str(corpus / "videos"), clip_length=4,
@@ -352,3 +435,78 @@ def test_cuda_augment_matches_cpu():
     for k in ("flow", "mv", "residual"):
         np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(),
                                    rtol=0, atol=ATOL_NORM, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_staging_waits_and_grows():
+    """`PinnedStaging` on the card: two copies back to back of different
+    arrays, the first held behind a busy stream, each arrives whole (the
+    second refills the buffer only after the first's copy has run); a
+    larger, strided array after them grows the buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    rng = np.random.default_rng(12)
+    arrays = [rng.integers(0, 256, (16, 226, 226, 7), dtype=np.uint8)
+              for _ in range(2)]
+    larger = rng.integers(0, 256, (16, 360, 480, 7),
+                          dtype=np.uint8)[:, 20:340, 30:450]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    staging = tvi.PinnedStaging()
+    staging.to_device(arrays[1], dev)   # allocates the buffer
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)   # the next copy waits behind
+    got = [staging.to_device(a, dev) for a in arrays]
+    small = staging._buffers[dev][0].numel()
+    got.append(staging.to_device(larger, dev))
+    assert staging._buffers[dev][0].numel() > small
+    for a, g in zip(arrays + [larger], got):
+        np.testing.assert_array_equal(g.cpu().numpy(), a)
+
+
+@pytest.mark.cuda
+def test_cuda_boxed_augment_matches():
+    """`i3d_augment_batch` on the card: two calls back to back on
+    different clips, then a larger box, each equal to its CPU result (the
+    flow blockify's sums differ from the CPU's in the last bits); centre
+    crops bit-equal to the whole-frame computation on the card under TF32;
+    every copy through the pinned buffer."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmcnet_tpu_torch.utils.profiling import read_spans
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    rng = np.random.default_rng(11)
+    centre = [crop_batch(rng, 32, 360, 480, 224, [(68, 128, 224, 224, False)])
+              for _ in range(2)]
+    larger = crop_batch(rng, 16, 360, 480, 224, [(0, 0, 300, 280, True),
+                                                 (40, 180, 320, 300, False),
+                                                 (100, 60, 224, 224, True)])
+    aug = dict(modality="flow+mp4", ds_factor=16, input_size=224)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = [tvi.i3d_augment_batch(b, device="cuda", **aug)
+                   for b in centre]
+            torch.backends.cuda.matmul.allow_tf32 = False
+            got_larger = tvi.i3d_augment_batch(larger, device="cuda", **aug)
+            torch.cuda.synchronize()
+            spans = [e for e in read_spans() if e["name"] == "data.i3d_h2d"]
+        assert [e["counts"]["pinned"] for e in spans[-3:]] == [1, 1, 1]
+        for b, g in zip(centre, got):
+            want = tvi.i3d_augment_batch(b, device="cpu", **aug)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            whole = whole_frame_augment(b, 16, 224, device="cuda")
+            for k in ("flow", "mv", "residual"):
+                np.testing.assert_allclose(g[k].cpu().numpy(),
+                                           want[k].numpy(), rtol=0,
+                                           atol=ATOL_NORM, err_msg=k)
+                torch.testing.assert_close(g[k], whole[k], rtol=0, atol=0)
+        want = tvi.i3d_augment_batch(larger, device="cpu", **aug)
+        for k in ("flow", "mv", "residual"):
+            np.testing.assert_allclose(got_larger[k].cpu().numpy(),
+                                       want[k].numpy(), rtol=0,
+                                       atol=ATOL_NORM, err_msg=k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32

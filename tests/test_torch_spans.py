@@ -257,8 +257,9 @@ def test_i3d_eval_step_traced_is_bit_identical():
     np.testing.assert_array_equal(plain, got)
     assert [e["name"] for e in log] == ["data.i3d_h2d", "i3d.generator",
                                         "i3d.backbone"]
-    assert log[0]["counts"] == {"bytes": frames.nbytes,
-                                "kept": b * t * HW * HW * c}
+    # the centre crop's box: the crop and one pixel more on each side
+    assert log[0]["counts"] == {"bytes": b * t * (HW + 2) ** 2 * c,
+                                "kept": b * t * HW * HW * c, "pinned": 0}
     assert all(e["parent"] is None for e in log)
     assert len(events) == 3
 

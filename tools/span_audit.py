@@ -16,6 +16,9 @@ line, then one JSON line {"span_audit": ...}:
     the first);
   * `stream_ms_per_unit`: each device span's stream time per request or
     video, beside `window_ms_per_unit`;
+  * `counts_in_window`: the least and the most of each count of each span
+    in the window (`pinned` of `data.i3d_h2d` says which copy route ran),
+    and `host_ms_per_unit`: each span's host time in the window per unit;
   * the clock: each span-log entry against its own `dmc.*` kineto event
     (matched by name, in order): `outside_us`, the most any entry stands
     outside its event (0 when every entry lies inside), and `inside_us`,
@@ -123,6 +126,15 @@ def audit(run, events):
         if e["device_ms"] is not None:
             stream[e["name"]] = stream.get(e["name"], 0.0) + e["device_ms"]
     out["stream_ms_per_unit"] = {k: v / units for k, v in stream.items()}
+    counts, host = {}, {}
+    for e in read_spans(*run.trace.window):
+        host[e["name"]] = host.get(e["name"], 0.0) + \
+            (e["end_ns"] - e["start_ns"]) * 1e-6
+        for k, v in e["counts"].items():
+            lo, hi = counts.setdefault(e["name"], {}).get(k, (v, v))
+            counts[e["name"]][k] = [min(lo, v), max(hi, v)]
+    out["counts_in_window"] = counts
+    out["host_ms_per_unit"] = {k: v / units for k, v in host.items()}
     out["clock"] = clock_gaps(log, events)
     return out
 
