@@ -16,7 +16,8 @@ package's module names so every counterpart can be found:
                   and normalization on a device, the batch loader, an
                   image-list dataset
   models/         estimators (ContextNetwork(-Att), DenseNet family, Tiny
-                  early fusion), ResNet-18/34, DMCNet (with or without a
+                  early fusion), ResNet-18/34 and the bottleneck
+                  ResNet-50/101/152, DMCNet (with or without a
                   discriminator), PlainTSN, the GAN discriminators, I3D,
                   weight bridge, initialisers and 2D -> 3D inflation, the
                   Kinetics TF importer

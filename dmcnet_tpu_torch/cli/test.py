@@ -123,6 +123,43 @@ def build_parser():
     return parser
 
 
+def score_video(net, raw, aug, plain_key=None, pp_classify=None,
+                n_microbatches=1):
+    """One video's scores, as `main` computes them for each video of the
+    list: `augment_eval_batch` of `raw` (the assembler's `eval_batch` of
+    one video) with the options `aug`, the net on every segment x crop
+    clip, then `segment_consensus` over them.
+
+    `plain_key` names the modality slot a `PlainTSN` classifies (None: a
+    `DMCNet` on the mv and residual slots); `pp_classify` is `--pp`'s
+    pipelined backbone, fed in `n_microbatches`.  -> dict: `scores` (1, C),
+    the clips' `logits` (clips, C) and, for a `DMCNet`, `outs`, its
+    forward's outputs (None with `pp_classify`)."""
+    batch = augment_eval_batch(raw, **aug)
+    x = batch[plain_key or "mv"]
+    clips = x.shape[1]
+    outs = None
+    with torch.no_grad():
+        if pp_classify is not None:
+            if plain_key:   # the modality clips are the pipeline's input
+                gen = x.reshape((-1,) + tuple(x.shape[-3:]))
+            else:
+                gen = net.generate(batch["mv"], batch["residual"])
+            n = gen.shape[0]
+            pad = (-n) % n_microbatches
+            if pad:  # the microbatch count must divide the clip batch;
+                # wrapping the indices pads fully even when n < pad
+                gen = gen[torch.arange(n + pad, device=gen.device) % n]
+            logits = pp_classify(gen)[:n]
+        elif plain_key:
+            logits = net(x)
+        else:
+            outs = net(batch["mv"], batch["residual"])
+            logits = outs[0]
+        return {"scores": segment_consensus(logits, clips), "logits": logits,
+                "outs": outs}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.plain and (args.att or args.arch_d or args.viz):
@@ -157,11 +194,14 @@ def main(argv=None):
     aug = dict(representation=args.representation,
                flow_ds_factor=args.flow_ds_factor,
                upsample_interp=args.upsample_interp,
-               input_size=args.input_size, device=device)
+               input_size=args.input_size,
+               negate_channels=asm.negate_channels, device=device)
 
-    # the normalize_group slot carrying the modality: iframe rides in 'mv'
-    # (the reference reuses the variable, dataset.py:204-211)
-    plain_key = "residual" if args.representation == "residual" else "mv"
+    # the normalize_group slot carrying a --plain modality: iframe rides in
+    # 'mv' (the reference reuses the variable, dataset.py:204-211)
+    plain_key = None
+    if args.plain:
+        plain_key = "residual" if args.representation == "residual" else "mv"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         if args.plain:
@@ -183,7 +223,7 @@ def main(argv=None):
               f"missing {len(missing)})")
     net.to(device).eval()
 
-    total_seg = args.test_segments * args.test_crops
+    pp_classify = None
     if pp:
         from dmcnet_tpu_torch.parallel import (
             make_pp_resnet18,
@@ -198,51 +238,24 @@ def main(argv=None):
 
         os.makedirs(args.viz_dir, exist_ok=True)
 
-    def forward_video(batch):
-        """-> (video scores (1, C), validity or None, first clip's cue or
-        None)."""
-        validity = gen0 = None
-        if pp:
-            if args.plain:   # the modality clips are the pipeline's input
-                x = batch[plain_key]
-                gen = x.reshape((-1,) + tuple(x.shape[-3:]))
-            else:
-                gen = net.generate(batch["mv"], batch["residual"])
-            n = gen.shape[0]
-            pad = (-n) % args.pp
-            if pad:  # the microbatch count must divide the clip batch;
-                # wrapping the indices pads fully even when n < pad
-                gen = gen[torch.arange(n + pad, device=gen.device) % n]
-            logits = pp_classify(gen)[:n]
-        elif args.plain:
-            logits = net(batch[plain_key])
-        else:
-            outs = net(batch["mv"], batch["residual"])
-            logits = outs[0]
-            if args.arch_d:
-                validity = outs[2]
-            if args.viz:
-                gen0 = outs[1][0]
-        return segment_consensus(logits, total_seg), validity, gen0
-
     output, video_labels = [], []
     g_adv_real, g_adv_rows = 0, 0
     proc_start_time = time.time()
     for i in range(len(ds)):
-        batch = augment_eval_batch(asm.eval_batch([i]), **aug)
-        with torch.no_grad():
-            consensus, validity, gen0 = forward_video(batch)
-            scores = consensus.cpu().numpy()
-        if validity is not None:
+        raw = asm.eval_batch([i])
+        out = score_video(net, raw, aug, plain_key, pp_classify, args.pp)
+        scores = out["scores"].cpu().numpy()
+        if args.arch_d:
+            validity = out["outs"][2]
             g_adv_real += int((validity.argmax(-1) == 1).sum())
             g_adv_rows += validity.shape[0]
-        if gen0 is not None:
+        if args.viz:
             # the reference renders flow pictures with --viz (test.py:117)
-            g = gen0.float().cpu().numpy()    # (2, H, W)
+            g = out["outs"][1][0].float().cpu().numpy()    # (2, H, W)
             img = (viz_flow(g[0], g[1]) * 255).astype(np.uint8)
             name = os.path.splitext(os.path.basename(ds.items[i].path))[0]
             write_png(f"{args.viz_dir}/{i:05d}_{name}_gen_flow.png", img)
-        label = int(batch["label"][0])
+        label = int(raw["label"][0])
         output.append((scores, label))
         video_labels.append(label)
         if (i + 1) % 100 == 0:

@@ -448,6 +448,12 @@ def main(argv=None, gan=False, input_size=224):
     reference's fixed 224, and tests shrink it."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser(gan=gan).parse_args(argv)
+    if args.representation == "iframe":
+        # an iframe group carries RGB in the mv slot: the generator, which
+        # reads mv and residual, has no input (CoViAR trains the bare TSN)
+        raise SystemExit("--representation iframe: the DMC generator has "
+                         "no generator input in an iframe group; score a "
+                         "CoViAR I-frame TSN with cli.test --plain 1")
     spawn = args.gpus and len(args.gpus) > 1 and \
         args.dist_num_processes is None
     n_proc = len(args.gpus) if spawn else (args.dist_num_processes or 1)

@@ -44,6 +44,7 @@ from dmcnet_tpu_torch.codec.mpeg4 import (
 from dmcnet_tpu_torch.data import transforms as T
 from dmcnet_tpu_torch.data.lists import load_video_list
 from dmcnet_tpu_torch.data.sampling import test_frame_index, train_frame_index
+from dmcnet_tpu_torch.utils.profiling import span
 
 
 def _encode_u8(arr, minmax_bound=None):
@@ -364,10 +365,17 @@ class BatchAssembler:
         }
 
 
-def _device_frames(frames_u8, device):
+def _device_frames(frames_u8, device, copy_span=None):
     """(B, S, H, W, C) uint8 host canvas -> (B, S, C, H, W) float32 on
-    `device` (the uint8 bytes cross to the device, not the floats)."""
-    x = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(device)
+    `device` (the uint8 bytes cross to the device, not the floats).  With
+    `copy_span`, the copy runs inside that `utils.profiling.span`, which
+    counts its `bytes`."""
+    x = torch.from_numpy(np.ascontiguousarray(frames_u8))
+    if copy_span is None:
+        x = x.to(device)
+    else:
+        with span(copy_span, bytes=x.nbytes):
+            x = x.to(device)
     return x.permute(0, 1, 4, 2, 3).contiguous().float()
 
 
@@ -396,9 +404,10 @@ def augment_eval_batch(batch, representation, flow_ds_factor=0,
                        negate_channels=(0, 2), device=None):
     """Apply every crop on `device` and fold the crops into the segment axis
     like the reference ((num_crops * num_segments) consensus, test.py:146):
-    outputs are (B, crops * S, c, input_size, input_size)."""
+    outputs are (B, crops * S, c, input_size, input_size).  The canvas's
+    copy to `device` is the span `data.eval_h2d` (its `bytes`)."""
     dev = resolve_device(device)
-    frames = _device_frames(batch["frames"], dev)
+    frames = _device_frames(batch["frames"], dev, "data.eval_h2d")
     b, s = frames.shape[:2]
     n_crops = batch["scales"].shape[1]
     crops = torch.stack([

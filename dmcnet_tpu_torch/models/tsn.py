@@ -28,10 +28,18 @@ from torch import nn
 
 from dmcnet_tpu_torch.models.discriminators import make_discriminator
 from dmcnet_tpu_torch.models.generators import make_estimator
-from dmcnet_tpu_torch.models.resnet import resnet18, resnet34
+from dmcnet_tpu_torch.models.resnet import (
+    resnet18,
+    resnet34,
+    resnet50,
+    resnet101,
+    resnet152,
+)
 from dmcnet_tpu_torch.utils.profiling import span
 
-_BACKBONES = {"resnet18": resnet18, "resnet34": resnet34}
+_BACKBONES = {"resnet18": resnet18, "resnet34": resnet34,
+              "resnet50": resnet50, "resnet101": resnet101,
+              "resnet152": resnet152}
 
 
 def _backbone(arch, num_class, in_channels):
@@ -55,14 +63,18 @@ def segment_consensus(logits, num_segments):
 class PlainTSN(nn.Module):
     """Plain CoViAR-style TSN: the backbone classifies the modality input
     directly, no generator (`cli/test.py --plain 1`).  `in_channels` is the
-    modality's: 3 for iframe and residual, 2 for mv."""
+    modality's: 3 for iframe and residual, 2 for mv.  The backbone runs
+    inside the span `tsn.backbone` (with its stream time and its
+    `clips`)."""
 
     def __init__(self, num_class, arch="resnet18", in_channels=3):
         super().__init__()
         self.base_model = _backbone(arch, num_class, in_channels)
 
     def forward(self, x):
-        return self.base_model(_flatten_segments(x))
+        x = _flatten_segments(x)
+        with span("tsn.backbone", device=x.device, clips=x.shape[0]):
+            return self.base_model(x)
 
 
 class DMCNet(nn.Module):

@@ -20,6 +20,8 @@ from dmcnet_tpu_torch.utils.profiling import read_spans, span
 CLOCK_TOL_NS = 200_000
 CHUNK = ["serving.pack", "serving.h2d", "serving.enqueue",
          "serving.generator", "serving.classifier"]
+# the unfolded classifier's stages, inside `serving.classifier`
+RESNET = ["resnet.layer1", "resnet.layer2", "resnet.layer3", "resnet.layer4"]
 
 
 @pytest.fixture(autouse=True)
@@ -147,28 +149,31 @@ def clips(tmp_path_factory):
     return paths
 
 
-def expected_device_path(paths, chunk_gops):
+def expected_device_path(paths, chunk_gops, unfolded=False):
     """The span names of one device-path `predict_videos` call: a gather a
     video, a chunk's five spans each time `chunk_gops` GOPs of two frames
-    or more have gathered, the ragged tail, then readback and reduce."""
+    or more have gathered (and, `unfolded`, the ResNet's four stages
+    inside the classifier), the ragged tail, then readback and reduce."""
     from dmcnet_tpu_torch.codec.mpeg4 import VideoReader
 
+    chunk = CHUNK + (RESNET if unfolded else [])
     names, buffered = ["serving.request"], 0
     for p in paths:
         names.append("serving.gather")
         r = VideoReader(p)
         buffered += sum(r.gop_len(g) >= 2 for g in range(r.num_gops))
         while buffered >= chunk_gops:
-            names += CHUNK
+            names += chunk
             buffered -= chunk_gops
     if buffered:
-        names += CHUNK
+        names += chunk
     return names + ["serving.readback", "serving.reduce"]
 
 
 def check_request_tree(log):
     """One root request; stages are its children; the generator and the
-    classifier run inside an enqueue."""
+    classifier run inside an enqueue, the ResNet's stages inside the
+    classifier."""
     request = log[0]
     assert request["name"] == "serving.request"
     assert request["parent"] is None
@@ -177,6 +182,8 @@ def check_request_tree(log):
         assert e["root"] == request["index"], e
         if e["name"] in ("serving.generator", "serving.classifier"):
             assert by_index[e["parent"]]["name"] == "serving.enqueue", e
+        elif e["name"] in RESNET:
+            assert by_index[e["parent"]]["name"] == "serving.classifier", e
         else:
             assert e["parent"] == request["index"], e
 
@@ -196,7 +203,7 @@ def test_predict_videos_traced_is_bit_identical(clips, pack):
     got, log, events = traced(run)
     for a, b in zip(plain, got):
         np.testing.assert_array_equal(a, b)
-    want = expected_device_path(clips, 4)
+    want = expected_device_path(clips, 4, unfolded=not pack)
     assert want.count("serving.pack") == 2
     assert [e["name"] for e in log] == want
     check_request_tree(log)
@@ -275,6 +282,50 @@ def test_i3d_remat_recompute_is_outside_the_spans():
 
     _, log, _ = traced(run)
     assert [e["name"] for e in log] == ["i3d.generator", "i3d.backbone"]
+
+
+# --- plain TSN scoring (`cli.test --plain 1`) -----------------------------
+
+def test_plain_tsn_scoring_traced_is_bit_identical():
+    """`cli.test.score_video` on a ResNet-152 `PlainTSN`, one video of 1
+    segment x 10 crops: nothing logged without a profiler; under one the
+    canvas's copy (`bytes`, its u8 size), then the backbone (`clips`)
+    around the ResNet's four stages (`blocks` 3, 8, 36, 3)."""
+    from dmcnet_tpu_torch.cli.test import score_video
+    from dmcnet_tpu_torch.data import transforms as T
+    from dmcnet_tpu_torch.models.tsn import PlainTSN
+
+    s, h, w, c = 1, 40, 48, 8
+    frames = np.random.default_rng(4).integers(
+        0, 256, (1, s, h, w, c)).astype(np.uint8)
+    specs = T.oversample_specs(h, w, HW * 256 // 224, HW)
+    raw = {"frames": frames,
+           "scales": np.asarray([[x[:2] for x in specs]], np.float32),
+           "translations": np.asarray([[x[2:4] for x in specs]], np.float32),
+           "flips": np.asarray([[x[4] for x in specs]]),
+           "label": np.zeros(1, np.int32)}
+    torch.manual_seed(0)
+    net = PlainTSN(NUM_CLASS, arch="resnet152", in_channels=3).eval()
+    aug = dict(representation="iframe", input_size=HW, negate_channels=(0,),
+               device="cpu")
+
+    def run():
+        return score_video(net, raw, aug, "mv")["scores"].numpy()
+
+    before = len(read_spans())
+    plain = run()
+    assert len(read_spans()) == before   # no profiler, no log
+    got, log, events = traced(run)
+    np.testing.assert_array_equal(plain, got)
+    assert [e["name"] for e in log] == ["data.eval_h2d", "tsn.backbone"] \
+        + RESNET
+    assert log[0]["counts"] == {"bytes": frames.nbytes}
+    assert log[1]["counts"] == {"clips": 10 * s}
+    assert [e["counts"] for e in log[2:]] == [{"blocks": n}
+                                              for n in (3, 8, 36, 3)]
+    assert log[0]["parent"] is log[1]["parent"] is None
+    assert all(e["parent"] == log[1]["index"] for e in log[2:])
+    assert len(events) == 6
 
 
 @pytest.mark.cuda
