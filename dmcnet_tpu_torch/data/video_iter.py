@@ -51,6 +51,7 @@ from dmcnet_tpu_torch.data import transforms as T
 from dmcnet_tpu_torch.data.dmc_dataset import GopCache
 from dmcnet_tpu_torch.data.sampling import SequentialSampling, get_gop_pos_i3d
 from dmcnet_tpu_torch.utils.profiling import span
+from dmcnet_tpu_torch.utils.staging import PinnedStaging
 
 _CHANNELS = {"rgb": 3, "I": 3, "res": 3, "mv": 2, "flow": 2, "flow+mp4": 7}
 # Decode errors a clip is resampled on (those `CoviarDataset` zero-fills).
@@ -255,40 +256,6 @@ class I3DBatchAssembler:
             "flips": np.asarray(flips, bool),
             "label": np.asarray(labels, np.int32),
         }
-
-
-class PinnedStaging:
-    """A grow-only pinned host buffer per CUDA device, through which
-    `i3d_augment_batch` copies a clip's box: the box is written into the
-    buffer by torch's (multi-threaded) CPU copy, sent with one
-    `non_blocking` copy, and the buffer is refilled only after the event
-    recorded behind that copy has completed, so that a call never
-    overwrites bytes still in flight.  The buffer is sized in bytes, since
-    a training batch's box changes from batch to batch."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._buffers = {}   # device -> (u8 pinned buffer, event or None)
-
-    def to_device(self, array, device):
-        """The numpy u8 `array` (any strides) as a contiguous tensor on the
-        CUDA `device`, its copy queued on the device's current stream."""
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        with self._lock:
-            buf, done = self._buffers.get(device, (None, None))
-            if done is not None:
-                done.synchronize()
-            if buf is None or buf.numel() < array.nbytes:
-                buf = torch.empty(array.nbytes, dtype=torch.uint8,
-                                  pin_memory=True)
-            host = buf[:array.nbytes].view(array.shape)
-            host.copy_(torch.from_numpy(array))
-            out = host.to(device, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(device))
-            self._buffers[device] = (buf, done)
-        return out
 
 
 # Module state, since `i3d_augment_batch` is a function its callers share;

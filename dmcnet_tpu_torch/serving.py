@@ -24,6 +24,12 @@ for the TPU is not carried over: frames are picked with an index gather
 (not a one-hot contraction), inputs move as separate tensors (not one flat
 u8 buffer), and nothing is compiled per shape.
 
+Each GOP chunk's real rows are written straight into a reused host buffer
+(`utils.staging.PinnedStaging`, two a device taken in turn, pinned on a
+card) and sent with `non_blocking` copies; the chunk ladder's padded rows
+are set on the device and cross no bus.  A fill waits only for the copies
+of the chunk that last used its buffer, never for that chunk's compute.
+
 Several cards (`mesh=[device, ...]`, the JAX package's 1-D serving mesh):
 the predictor holds a replica of the model on each device, splits each GOP
 chunk and each host-path clip batch into contiguous per-device slices
@@ -39,6 +45,7 @@ runs.
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
@@ -53,6 +60,7 @@ from dmcnet_tpu_torch.ops.backtrace import backtrace_warp_batch
 from dmcnet_tpu_torch.ops.packed_generator import PackedDenseEstimator
 from dmcnet_tpu_torch.ops.packed_resnet import PackedResNet18
 from dmcnet_tpu_torch.utils.profiling import span
+from dmcnet_tpu_torch.utils.staging import PinnedStaging
 
 
 class DMCPredictor:
@@ -121,6 +129,7 @@ class DMCPredictor:
         self._res_std = [torch.as_tensor(IMAGENET_STD, device=d)
                          for d in self.mesh]
         self._backtrace = backtrace_impl or backtrace_warp_batch
+        self._staging = PinnedStaging(slots=2)
 
     @classmethod
     def from_checkpoint(cls, path, num_class=51, **kwargs):
@@ -183,7 +192,8 @@ class DMCPredictor:
         (N, C) as numpy in input order."""
         parts = []
         for i, a, b in self._shares(len(mv)):
-            with span("serving.h2d"):
+            nbytes = mv[a:b].nbytes + res[a:b].nbytes
+            with span("serving.h2d", bytes=nbytes, pinned_bytes=0):
                 inputs = self._to_device((mv[a:b], res[a:b]), self.mesh[i])
             with span("serving.enqueue"):
                 parts.append(self._forward_u8(*inputs, replica=i))
@@ -257,22 +267,70 @@ class DMCPredictor:
         return [torch.from_numpy(a).to(device or self.device)
                 for a in arrays]
 
+    def _row_specs(self, tmax, h, w, cell, n_pick):
+        """[(row shape, dtype, padded rows' value)] of `_gop_program`'s
+        four inputs: cell MVs, I-frames, cropped picked frames, picks."""
+        size = self.input_size
+        return [((tmax, h // cell, w // cell, 2), torch.int32, 0),
+                ((h, w, 3), torch.uint8, 0),
+                ((n_pick, size, size, 3), torch.uint8, 0),
+                ((n_pick,), torch.int64, 1)]
+
     def _launch(self, rows, g, tmax, h, w, cell, n_pick):
         """Enqueue the GOP program of `rows` padded to `g` rows: over the
-        mesh, each device its contiguous share of the `g` rows, packed,
-        copied and launched before any result is read.  Returns [(logits,
-        mv_u8, res_u8)] on the devices, in row order (`gather_outputs`)."""
+        mesh, each device its contiguous share of the `g` rows, staged
+        (`_stage`, on the CPU as on a card) and launched before any result
+        is read.  Returns [(logits, mv_u8, res_u8)] on the devices, in row
+        order (`gather_outputs`)."""
         out = []
         for i, a, b in self._shares(g):
             fn = self._gop_program(b - a, tmax, h, w, cell, n_pick,
                                    replica=i)
-            with span("serving.pack"):
-                arrays = self._pack_rows(rows[a:b], b - a, tmax, h, w, cell,
-                                         n_pick)
-            with span("serving.h2d"):
-                inputs = self._to_device(arrays, self.mesh[i])
+            inputs = self._stage(rows[a:b], b - a, tmax, h, w, cell, n_pick,
+                                 self.mesh[i])
             with span("serving.enqueue"):
                 out.append(fn(*inputs))
+        return out
+
+    def _stage(self, rows, g, tmax, h, w, cell, n_pick, device):
+        """`_to_device(_pack_rows(...), device)` through the predictor's
+        `PinnedStaging`: the real rows are written into a reused host buffer
+        (pinned on a card) and sent with `non_blocking` copies on the
+        device's current stream; the padded rows `[len(rows):g]` are set on
+        the device as `_pack_rows` makes them (zeros, picks 1), so they
+        cross no bus.  The `serving.pack` span counts the `bytes` written
+        and `waited` (1 when the buffer's last copies had not completed);
+        `serving.h2d` the `bytes` sent and, of them, `pinned_bytes`."""
+        n = len(rows)
+        specs = self._row_specs(tmax, h, w, cell, n_pick)
+        sizes = [n * math.prod(s) * dt.itemsize for s, dt, _ in specs]
+        offsets = [0]
+        for nb in sizes[:-1]:   # each view aligned for its dtype
+            offsets.append(-(-(offsets[-1] + nb) // 64) * 64)
+        nbytes = sum(sizes)
+        with self._staging.take(device) as slot:
+            with span("serving.pack", bytes=nbytes, waited=int(slot.busy())):
+                buf = slot.buffer(offsets[-1] + sizes[-1])
+                host = [buf[o:o + nb].view(dt).view((n,) + s)
+                        for o, nb, (s, dt, _) in zip(offsets, sizes, specs)]
+                arrays = [v.numpy() for v in host]
+                self._fill_rows(arrays, rows, cell)
+                pk = arrays[3]
+                # the padded rows' picks are 1
+                if pk.min(initial=0) < 0 or \
+                        max(pk.max(initial=0), int(n < g)) >= tmax:
+                    raise ValueError(f"picks out of range [0, {tmax})")
+            with span("serving.h2d", bytes=nbytes,
+                      pinned_bytes=nbytes if slot.pinned else 0):
+                out = []
+                for src, (s, dt, pad) in zip(host, specs):
+                    dst = torch.empty((g,) + s, dtype=dt, device=device)
+                    if n:
+                        dst[:n].copy_(src, non_blocking=True)
+                    if n < g:
+                        dst[n:].fill_(pad)
+                    out.append(dst)
+                slot.sent()
         return out
 
     @staticmethod
@@ -294,23 +352,20 @@ class DMCPredictor:
         quant = self._gop_quant
         top = -(-chunk_gops // quant) * quant
         size = self.input_size
+        ladder = self._chunk_ladder(top)
         for geom in geometries:
             h, w = geom[0], geom[1]
             t_g = geom[2] if len(geom) > 2 else t
             cell_g = geom[3] if len(geom) > 3 else cell
-            for g in self._chunk_ladder(top):
-                for i, a, b in self._shares(g):
-                    n = b - a
-                    fn = self._gop_program(n, t_g, h, w, cell_g,
-                                           frames_per_gop, replica=i)
-                    arrays = (
-                        np.zeros((n, t_g, h // cell_g, w // cell_g, 2),
-                                 np.int32),
-                        np.zeros((n, h, w, 3), np.uint8),
-                        np.zeros((n, frames_per_gop, size, size, 3),
-                                 np.uint8),
-                        np.ones((n, frames_per_gop), np.int64))
-                    fn(*self._to_device(arrays, self.mesh[i]))
+            row = (np.zeros((t_g, h // cell_g, w // cell_g, 2), np.int32),
+                   cell_g, np.zeros((h, w, 3), np.uint8),
+                   np.zeros((frames_per_gop, size, size, 3), np.uint8),
+                   np.ones(frames_per_gop, np.int64))
+            # the largest rung first, twice: each of a card's two staging
+            # buffers is sized for it at once
+            for g in [top] + ladder[::-1]:
+                self._launch([row] * g, g, t_g, h, w, cell_g,
+                             frames_per_gop)
         for n in host_buckets:
             self._forward_u8_mesh(np.zeros((n, size, size, 2), np.uint8),
                                   np.zeros((n, size, size, 3), np.uint8))
@@ -475,24 +530,35 @@ class DMCPredictor:
         (g, n_pick, S, S, 3) uint8, picks (g, n_pick) int64 (edge-padded;
         padded slots re-score a real frame and are dropped by the
         caller)."""
-        ncy, ncx = h // cell, w // cell
-        size = self.input_size
-        cm_b = np.zeros((g, tmax, ncy, ncx, 2), np.int32)
-        if_b = np.zeros((g, h, w, 3), np.uint8)
-        fp_b = np.zeros((g, n_pick, size, size, 3), np.uint8)
-        pk_b = np.ones((g, n_pick), np.int64)
-        for i, (cm, c, iframe, fp, pick) in enumerate(rows):
-            if c != cell:
-                cm = np.repeat(np.repeat(cm, c // cell, axis=1),
-                               c // cell, axis=2)
-            cm_b[i, :cm.shape[0]] = cm
-            if_b[i] = iframe
-            fp_b[i, :fp.shape[0]] = fp
-            pk_b[i, :len(pick)] = pick
-            pk_b[i, len(pick):] = pick[-1]
+        arrays = tuple(torch.full((g,) + s, pad, dtype=dt).numpy()
+                       for s, dt, pad in self._row_specs(tmax, h, w, cell,
+                                                         n_pick))
+        self._fill_rows([a[:len(rows)] for a in arrays], rows, cell)
+        pk_b = arrays[3]
         if pk_b.min(initial=0) < 0 or pk_b.max(initial=0) >= tmax:
             raise ValueError(f"picks out of range [0, {tmax})")
-        return cm_b, if_b, fp_b, pk_b
+        return arrays
+
+    @staticmethod
+    def _fill_rows(views, rows, cell):
+        """Write GOP rows `(cm, cell_of_cm, iframe, fp, pick)` into the numpy
+        arrays `views` (`_row_specs`' four, one row each) on the calling
+        thread: every byte of each row, since a reused buffer holds an
+        earlier chunk's bytes — cell-grid frames past the GOP's length and
+        picked frames past its count are zeroed, picks edge-padded; a
+        16-grid expands to 8 inside its view."""
+        cm_v, if_v, fp_v, pk_v = views
+        _, ncy, ncx, _ = cm_v.shape[1:]
+        for i, (cm, c, iframe, fp, pick) in enumerate(rows):
+            t, r = cm.shape[0], c // cell
+            cm_v[i, :t].reshape(t, ncy // r, r, ncx // r, r, 2)[:] = \
+                cm[:, :, None, :, None]
+            cm_v[i, t:] = 0
+            if_v[i] = iframe
+            fp_v[i, :len(fp)] = fp
+            fp_v[i, len(fp):] = 0
+            pk_v[i, :len(pick)] = pick
+            pk_v[i, len(pick):] = pick[-1]
 
     def _predict_video_device(self, path, frames_per_gop=3, segments=None):
         """Device-path inference of one video; None when any GOP

@@ -456,9 +456,9 @@ def test_cuda_pinned_staging_waits_and_grows():
     torch.cuda.synchronize()
     torch.cuda._sleep(500_000_000)   # the next copy waits behind
     got = [staging.to_device(a, dev) for a in arrays]
-    small = staging._buffers[dev][0].numel()
+    small = staging._slots[dev][0].buf.numel()
     got.append(staging.to_device(larger, dev))
-    assert staging._buffers[dev][0].numel() > small
+    assert staging._slots[dev][0].buf.numel() > small
     for a, g in zip(arrays + [larger], got):
         np.testing.assert_array_equal(g.cpu().numpy(), a)
 

@@ -188,6 +188,32 @@ def check_request_tree(log):
             assert e["parent"] == request["index"], e
 
 
+def copied_bytes(pred):
+    """-> a list that gathers the bytes of each `pred._to_device` call."""
+    sent, to_device = [], pred._to_device
+
+    def counted(arrays, device=None):
+        sent.append(sum(a.nbytes for a in arrays))
+        return to_device(arrays, device)
+
+    pred._to_device = counted
+    return sent
+
+
+def staged_bytes(pred):
+    """-> a list that gathers the bytes of each `pred._stage` call's real
+    rows, as they reach the device."""
+    sent, stage = [], pred._stage
+
+    def counted(rows, *args):
+        out = stage(rows, *args)
+        sent.append(sum(t[:len(rows)].nbytes for t in out))
+        return out
+
+    pred._stage = counted
+    return sent
+
+
 @pytest.mark.parametrize("pack", [True, False], ids=["pack", "no-pack"])
 def test_predict_videos_traced_is_bit_identical(clips, pack):
     from dmcnet_tpu_torch.serving import DMCPredictor
@@ -200,6 +226,7 @@ def test_predict_videos_traced_is_bit_identical(clips, pack):
         return pred.predict_videos(paths, chunk_gops=4, backend="device")
 
     plain = run()
+    sent = staged_bytes(pred)
     got, log, events = traced(run)
     for a, b in zip(plain, got):
         np.testing.assert_array_equal(a, b)
@@ -208,6 +235,14 @@ def test_predict_videos_traced_is_bit_identical(clips, pack):
     assert [e["name"] for e in log] == want
     check_request_tree(log)
     assert len(events) == len(log)
+    # the CPU's staging buffers are not pinned, and its copies have
+    # completed before the next fill
+    counts = {k: [e["counts"] for e in log if e["name"] == k]
+              for k in ("serving.pack", "serving.h2d")}
+    assert counts["serving.pack"] == [{"bytes": n, "waited": 0}
+                                      for n in sent]
+    assert counts["serving.h2d"] == [{"bytes": n, "pinned_bytes": 0}
+                                     for n in sent]
 
 
 def test_predict_videos_host_path_spans(clips):
@@ -219,6 +254,7 @@ def test_predict_videos_host_path_spans(clips):
         return pred.predict_videos(clips, backend="host")
 
     plain = run()
+    sent = copied_bytes(pred)
     got, log, _ = traced(run)
     for a, b in zip(plain, got):
         np.testing.assert_array_equal(a, b)
@@ -228,6 +264,8 @@ def test_predict_videos_host_path_spans(clips):
     assert [e["name"] for e in log] == ["serving.request"] \
         + video * len(clips) + ["serving.readback", "serving.reduce"]
     check_request_tree(log)
+    assert [e["counts"] for e in log if e["name"] == "serving.h2d"] == \
+        [{"bytes": n, "pinned_bytes": 0} for n in sent]
 
 
 # --- the I3D evaluation step ---------------------------------------------
