@@ -32,31 +32,26 @@ dispatcher).  Phases:
                  small GOP vs the golden model; B2's own device time beside
                  the launch floor (a 1-element zero_() in the same queue),
                  its plain version's time and its bound
-  5. main path   DMCPredictor._pack_rows -> _gop_program on the card,
-                 served by the default pack=True predictor (the folded
-                 bfloat16 forward: packed generator + PackedResNet18);
-                 launch counts read around that run; u8 outputs equal to
-                 the pack=False predictor's on the same arrays and to the
+  5. main path   DMCPredictor._stage -> _gop_program on the card, served
+                 by the default pack=True predictor (the folded bfloat16
+                 forward: packed generator + PackedResNet18); launch
+                 counts read around that run; u8 outputs equal to the
+                 pack=False predictor's on the same inputs and to the
                  program with the plain back-trace; pack=False logits vs a
                  CPU run of the port (float32); pack=True logits vs
                  pack=False on the card and pack=True on the CPU, within
-                 PACK_TOL; chunk time and clips/s of both (pack=False also
-                 with TF32) and each forward's stage breakdown; B1's own
-                 device time (queued launches), its plain version's time
-                 and its bound
+                 PACK_TOL; B1's own device time (queued launches), its
+                 plain version's time and its bound.  The chunk's time is
+                 the serving cell's (benchmark/, serve.r18.batch8)
  5b. mesh        DMCPredictor(mesh=[every visible card]) on the same
                  chunk: B1 launched once per card, u8 outputs bit-equal
                  and logits within rtol 1e-4, atol 2e-4 of the one-card
                  predictor's, both chunks' ms; serve --mesh-devices over 4
                  synthetic videos (the host gather swapped: no decoder)
- 5c. packed      the packed layer alone: the generator over 192 clips at
-                 224² at s = 1, 2, 4 in bf16 and fp32, NCHW and
-                 channels_last; QuantizedPackedEstimator's int8 GEMM route
-                 bit-equal to its float64 route and timed beside the bf16
-                 packed generator; a dmcnet train step at the recipe's
-                 batch with --packed-gen 2 against 0 in fp32 and bf16,
-                 losses within the train phase's rtol in fp32 and
-                 PACKED_BF16_LOSS_RTOL in bf16
+ 5c. packed      a dmcnet train step at the recipe's batch with
+                 --packed-gen 2 against 0 in fp32 and bf16, losses within
+                 the train phase's rtol in fp32 and PACKED_BF16_LOSS_RTOL
+                 in bf16
   6. codec       gop_mv_residual_cuda on 256x320, T=12 GOPs equal to the
                  plain codec.accumulate.gop_mv_residual on the card and to
                  the golden load_like_coviar_numpy; the cell-16, cell-8 and
@@ -103,11 +98,10 @@ dispatcher).  Phases:
                  on clips of a VideoClipDataset over the synthetic GOPs:
                  two 16-frame clips through i3d_augment_batch and the
                  eval step, card against CPU (He-normal weights, so the
-                 logits see the clip); step, generator and backbone times
-                 at T = 250 in fp32, TF32 and bf16 with videos/s, peak
-                 memory and the FLOPs' share of the card's peak; the
-                 backbone through the unroll_time lowering (kt 2D convs)
-                 beside it, its logits within UNROLL_TOL of Conv3d's;
+                 logits see the clip); at T = 250 the backbone through the
+                 unroll_time lowering (kt 2D convs), its logits within
+                 UNROLL_TOL of Conv3d's in fp32, TF32 and bf16 (the step's
+                 times are the evaluation cell's, eval.i3d.clip250);
                  cli.evaluate_video_i3d.evaluate() over 4 videos x 2
                  rounds, its npz checked; a reference-layout .pth written,
                  reloaded through --load-weights bit-equal, and an RGB
@@ -215,8 +209,8 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit).
-HBM_BYTES_PER_S = 3.35e12
+from benchmark.yardstick import HBM_BYTES_PER_S, b1_bytes
+
 # 32-bit integer lane rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (half the
 # FP32 lanes behind the 67 TFLOP/s FP32 figure, which counts an FMA as 2).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -342,9 +336,6 @@ PP_VIDEOS = 4
 # The utils phase: --viz over VIZ_VIDEOS videos; --profile-dir over one
 # epoch of PROFILE_BATCHES batches (steps 2-7 traced).
 VIZ_VIDEOS, PROFILE_BATCHES = 2, 10
-# Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W) by the type
-# the I3D step computes in.
-PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # (cell, H, W, T) the kernels must mask: widths whose rows do not fill a
 # block's run of pixels, one and three cell rows, and T of one frame, one
 # pair and an odd count (the middle frame walks alone).
@@ -1553,45 +1544,14 @@ def he_init(torch, net, seed):
     return net
 
 
-def i3d_flops(torch, net, x):
-    """Operations of one I3D forward on x, counted from the layer shapes:
-    2 x the multiply-adds of every convolution and linear layer (pools,
-    BN and activations are left out).  Returns (generator, backbone)."""
-    counts = {"gen": 0, "i3d": 0}
-    hooks = []
-
-    def hook(part):
-        def fn(mod, inp, out):
-            if isinstance(mod, torch.nn.Linear):
-                macs = out.numel() * mod.in_features
-            else:
-                macs = out.numel() * (mod.in_channels // mod.groups) \
-                    * int(np.prod(mod.kernel_size))
-            counts[part] += 2 * macs
-        return fn
-
-    for name, mod in net.named_modules():
-        if isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d,
-                            torch.nn.Linear)):
-            part = "gen" if name.startswith("gen_flow_model") else "i3d"
-            hooks.append(mod.register_forward_hook(hook(part)))
-    with torch.no_grad():
-        net(x, "flow+logit")
-    for h in hooks:
-        h.remove()
-    return counts["gen"], counts["i3d"]
-
-
 def i3d_phase(torch, bt, dev, gops, smi, workdir):
     """10. I3D whole-video evaluation at the recipe's width, with its files
     in `workdir`."""
     import os
 
     from dmcnet_tpu_torch.cli import evaluate_video_i3d as eval_cli
-    from dmcnet_tpu_torch.data.transforms import crop_box
     from dmcnet_tpu_torch.data.video_iter import (
         I3DBatchAssembler,
-        PinnedStaging,
         i3d_augment_batch,
     )
     from dmcnet_tpu_torch.models.i3d import I3D, get_symbol
@@ -1656,7 +1616,8 @@ def i3d_phase(torch, bt, dev, gops, smi, workdir):
           f"{float(c_gen.abs().max()):.3g}); both rtol = atol = "
           f"{LOGIT_RTOL}")
 
-    # (b) full-width times at T = I3D_T
+    # (b) at T = I3D_T, the same weights through the unroll_time lowering:
+    # conv3d_2c_3x3 and the Mixed blocks' 3x3x3 convs as 3 2D convs each
     full_ds = synthetic_clip_dataset(pool, 2, I3D_T, dev, cache)
     asm = I3DBatchAssembler(full_ds, input_size=SIZE, is_train=False)
     t1 = time.perf_counter()
@@ -1667,113 +1628,38 @@ def i3d_phase(torch, bt, dev, gops, smi, workdir):
     mv_res = torch.cat([batch["mv"], batch["residual"]], dim=1)
     with torch.no_grad():
         gen = net.generate(mv_res)
-    gen_flops, i3d_flops_ = i3d_flops(torch, net, mv_res)
-    # the model's operations are the step's useful work; the augment's two
-    # resampling contractions (W then H, B = 1) compute a centre crop, a
-    # gather, and are counted apart as overhead
-    aug_flops = 2 * I3D_T * 7 * SIZE * (H * W + H * SIZE)
-    step_flops = gen_flops + i3d_flops_
     print(f"  set-up (model, synthetic datasets, card-vs-CPU check) "
           f"{time.perf_counter() - t0:.2f} s; one {I3D_T}-frame clip "
           f"assembled on the host in {assemble_s:.3f} s")
-    print(f"  FLOPs at T={I3D_T}, {SIZE}² (2 x multiply-adds of the convs "
-          f"and linears, from the layer shapes): generator "
-          f"{gen_flops / 1e9:.1f} G, I3D backbone {i3d_flops_ / 1e9:.1f} G, "
-          f"model (the step's useful work) {step_flops / 1e9:.1f} G; the "
-          f"augment's resampling contractions {aug_flops / 1e9:.1f} G more, "
-          "not counted in the shares below")
-    # the same weights through the unroll_time lowering: conv3d_2c_3x3 and
-    # the Mixed blocks' 3x3x3 convs as 3 2D convs each
     unrolled = I3D(NUM_CLASS, modality=args.modality,
                    arch_estimator=args.arch_estimator, input_size=SIZE,
                    unroll_time=True)
     unrolled.load_state_dict(net.state_dict())
     unrolled = unrolled.to(dev).eval()
-    timing = {}
+    unroll = {}
     for label, tf32, bf16 in (("fp32", False, False), ("tf32", True, False),
                               ("bf16", False, True)):
         torch.backends.cudnn.allow_tf32 = tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
         ctx = (lambda: torch.autocast("cuda", dtype=torch.bfloat16)) \
             if bf16 else (lambda: torch.autocast("cuda", enabled=False))
-
-        def backbone_unrolled():
-            with torch.no_grad(), ctx():
-                return unrolled.features_to_logits(gen)
-
-        def t_step():
-            b = i3d_augment_batch(raw, device=dev, **aug)
-            with ctx():
-                step(b)
-
-        def generator():
-            with torch.no_grad(), ctx():
-                net.generate(mv_res)
-
-        def backbone():
-            with torch.no_grad(), ctx():
-                net.features_to_logits(gen)
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        step_ms = median_ms(t_step, I3D_TIMED, torch)
-        peak = torch.cuda.max_memory_allocated()
-        gen_ms = median_ms(generator, I3D_TIMED, torch)
-        i3d_ms = median_ms(backbone, I3D_TIMED, torch)
-        aug_ms = median_ms(lambda: i3d_augment_batch(raw, device=dev, **aug),
-                           I3D_TIMED, torch)
-        unrolled_ms = median_ms(backbone_unrolled, I3D_TIMED, torch)
         with torch.no_grad(), ctx():
             want = net.features_to_logits(gen).float()
-        got = backbone_unrolled().float()
+            got = unrolled.features_to_logits(gen).float()
         unroll_err = float((got - want).abs().max())
         scale = float(want.abs().max())
         check(bool(torch.isfinite(got).all())
               and unroll_err <= UNROLL_TOL[label] * scale,
               f"unroll_time logits ({label}) {unroll_err} apart from the "
               f"Conv3d path's (max |logit| {scale})")
-        share = step_flops / (step_ms * 1e-3) / PEAK_FLOPS[label]
-        timing[label] = {"step_ms": step_ms, "generator_ms": gen_ms,
-                         "backbone_ms": i3d_ms, "augment_ms": aug_ms,
-                         "videos_per_s": 1e3 / step_ms,
-                         "peak_bytes": peak, "resident_bytes": base,
-                         "tflops": step_flops / (step_ms * 1e-3) / 1e12,
-                         "peak_share": share,
-                         "backbone_unrolled_ms": unrolled_ms,
-                         "unroll_logit_err": unroll_err,
-                         "unroll_logit_scale": scale}
-        print(f"  {label}: eval step (host clip -> augment -> generator -> "
-              f"I3D -> logits) {step_ms:.3f} ms = {1e3 / step_ms:.3f} "
-              f"videos/s; augment (clip to the card, crop, normalize) "
-              f"{aug_ms:.3f} ms, generator {gen_ms:.3f} ms, I3D backbone "
-              f"{i3d_ms:.3f} ms (medians of {I3D_TIMED}, CUDA events); peak "
-              f"memory {peak / 2**30:.3f} GiB ({base / 2**30:.3f} resident "
-              "before the step); "
-              f"model {step_flops / (step_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
-              f"{share * 100:.2f}% of the {label} peak "
-              f"({PEAK_FLOPS[label] / 1e12:.0f} TFLOP/s)")
-        print(f"  {label}: I3D backbone with unroll_time {unrolled_ms:.3f} ms "
-              f"against {i3d_ms:.3f} ms with Conv3d on {smi} = "
-              f"{i3d_flops_ / (unrolled_ms * 1e-3) / 1e12:.2f} against "
-              f"{i3d_flops_ / (i3d_ms * 1e-3) / 1e12:.2f} TFLOP/s of the "
-              f"backbone's {i3d_flops_ / 1e9:.1f} GFLOP; logits max |diff| "
-              f"{unroll_err:.3g} of max |logit| {scale:.3g} (tolerance "
-              f"{UNROLL_TOL[label]} of it)")
-    del unrolled
+        unroll[label] = {"logit_err": unroll_err, "logit_scale": scale}
+        print(f"  {label}: I3D backbone with unroll_time at T={I3D_T}: "
+              f"logits max |diff| {unroll_err:.3g} of max |logit| "
+              f"{scale:.3g} from Conv3d's (tolerance {UNROLL_TOL[label]} of "
+              "it)")
+    del unrolled, gen, mv_res, batch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    fh, fw = raw["frames"].shape[2:4]
-    y0, y1, x0, x1 = crop_box(raw["scales"], raw["translations"], SIZE, fh,
-                              fw)
-    box = raw["frames"][:, :, y0:y1, x0:x1]
-    staging = PinnedStaging()
-    h2d_ms = median_ms(lambda: staging.to_device(box, torch.device(dev)),
-                       I3D_TIMED, torch)
-    print(f"  of the augment: the crops' {box.nbytes / 1e6:.1f} MB box of the "
-          f"{raw['frames'].nbytes / 1e6:.1f} MB u8 clip, filled into pinned "
-          f"memory and copied to the card, {h2d_ms:.3f} ms")
-    del gen, mv_res, batch
 
     # (c) evaluate() over I3D_VIDEOS videos x 2 rounds, batch 1, its npz
     args.num_sample = 2
@@ -1864,12 +1750,10 @@ def i3d_phase(torch, bt, dev, gops, smi, workdir):
           "--load-weights: logits bit-equal on the card; an RGB model's "
           "3-channel stem channel-meaned onto the 2-channel one")
     print(f"  i3d phase {time.perf_counter() - t0:.1f} s")
-    return {"timing": timing, "flops": {"generator": gen_flops,
-                                        "backbone": i3d_flops_,
-                                        "augment": aug_flops},
+    return {"unroll_time": unroll,
             "check": {"augment": aug_err, "logits": logit_err,
                       "gen_flow": gen_err},
-            "h2d_ms": h2d_ms, "clip_assemble_s": assemble_s,
+            "clip_assemble_s": assemble_s,
             "evaluate_s": eval_s, "phase_s": time.perf_counter() - t0,
             "launches": launches}
 
@@ -2433,23 +2317,16 @@ def mesh_phase(torch, bt, pred, rows, outputs, cards, smi, workdir):
 
 
 def packed_phase(torch, bt, dev, gops, smi, workdir):
-    """5c. The packed layer on its own: the generator over the main path's
-    192 clips at 224² at s = 1, 2, 4 in bf16 and fp32, NCHW and
-    channels_last (the serving folds on, output packed), each within
-    PACK_TOL of s = 1 in fp32; `QuantizedPackedEstimator`'s int8 route (an
-    int8 GEMM) bit-equal to its float64 route on 8 clips, within 5% of the
-    float32 generator, and timed beside the bf16 packed generator on the
-    same normalized input; one dmcnet train step at the HMDB-51 recipe's
-    batch (40 x 3 at 224²) with --packed-gen 2 against 0, their losses
-    within TRAIN_LOSS_RTOL in fp32 and PACKED_BF16_LOSS_RTOL in bf16.  B1
-    counted around it (0; B2 launches only where the synthetic datasets
-    accumulate their GOPs).  Returns the numbers."""
+    """5c. The packed generator in training: one dmcnet train step at the
+    HMDB-51 recipe's batch (40 x 3 at 224²) with --packed-gen 2 against 0,
+    their losses within TRAIN_LOSS_RTOL in fp32 and PACKED_BF16_LOSS_RTOL
+    in bf16, and their times.  B1 counted around it (0; B2 launches only
+    where the synthetic datasets accumulate their GOPs).  Returns the
+    numbers."""
     import os
 
     from dmcnet_tpu_torch.cli import train as train_cli
     from dmcnet_tpu_torch.cli.train_options import build_parser
-    from dmcnet_tpu_torch.ops import packed_generator as pg
-    from dmcnet_tpu_torch.serving import DMCPredictor
     from dmcnet_tpu_torch.train import engine
     from dmcnet_tpu_torch.train import optimizers as topt
 
@@ -2457,81 +2334,7 @@ def packed_phase(torch, bt, dev, gops, smi, workdir):
     t_phase = time.perf_counter()
     bt.backtrace_warp_batch.launches = 0
     bt.backtrace_gop_cells.launches = 0
-    n = G * PICKS
-    # the main path's weights (seed 0) and serving folds
-    pred = DMCPredictor(num_class=NUM_CLASS, input_size=SIZE, device=dev,
-                        seed=0)
-    gen = pred.model.gen_flow_model
-    affine = pred.packed[0].input_affine
-    rng = torch.Generator(device=dev).manual_seed(0)
-    raw = torch.randint(0, 256, (n, 5, SIZE, SIZE), device=dev,
-                        generator=rng).float()
-
-    # (a) the generator's layouts
-    sweep, ref = {}, None
-    print(f"  packed generator, {n} clips at {SIZE}², input_affine and "
-          f"fuse_mv_delta on, output packed (median ms of 5, CUDA events) "
-          f"on {smi}:")
-    for s_ in (1, 2, 4):
-        for dt_name, dt in (("fp32", torch.float32),
-                            ("bf16", torch.bfloat16)):
-            for fmt_name, fmt in (("nchw", torch.contiguous_format),
-                                  ("channels_last", torch.channels_last)):
-                m = pg.PackedDenseEstimator(
-                    gen, s=s_, dtype=dt, packed_output=True,
-                    fuse_mv_delta=True, input_affine=affine,
-                    memory_format=fmt).to(dev)
-                x = raw.to(dt)
-                with torch.inference_mode():
-                    out = pg.depth_to_space(m(x), s_).float()
-                    if ref is None:
-                        ref = out   # s = 1, fp32, NCHW
-                    err = float((out - ref).abs().max())
-                    scale = float(ref.abs().max())
-                    check(err <= PACK_TOL * scale,
-                          f"generator s={s_} {dt_name} {fmt_name} differs "
-                          f"by {err}")
-                    ms = median_ms(lambda: m(x), 5, torch)
-                key = f"s{s_}_{dt_name}_{fmt_name}"
-                sweep[key] = {"ms": ms, "max_abs_diff": err}
-                print(f"    s={s_} {dt_name} {fmt_name}: {ms:.3f} ms "
-                      f"({n / ms * 1e3:.1f} clips/s); max |diff| from s=1 "
-                      f"fp32 NCHW {err:.3g} (max |cue| {scale:.3g})")
-                del m, out
-    del ref
-
-    # (b) the int8 estimator on the normalized input
-    scale_t = torch.as_tensor(np.asarray(affine[0], np.float32), device=dev)
-    shift_t = torch.as_tensor(np.asarray(affine[1], np.float32), device=dev)
-    norm = raw * scale_t[:, None, None] + shift_t[:, None, None]
-    quant = pg.QuantizedPackedEstimator(gen, norm[:8], s=2).to(dev)
-    bf16_gen = pg.PackedDenseEstimator(gen, s=2, dtype=torch.bfloat16).to(
-        dev)
-    with torch.inference_mode():
-        small = norm[:8]
-        q_gemm = quant(small)
-        q_f64 = quant(small, int_conv=pg.int_conv3x3_f64)
-        check(torch.equal(q_gemm, q_f64),
-              "the int8 GEMM route != the float64 route")
-        want = gen(small)
-        rel = {"int8": float((q_gemm - want).abs().mean()
-                             / want.abs().mean()),
-               "bf16": float((bf16_gen(small).float() - want).abs().mean()
-                             / want.abs().mean())}
-        check(rel["int8"] < 0.05, f"int8 generator {rel['int8']:.4f} from "
-              "float32")
-        norm_bf16 = norm.to(torch.bfloat16)
-        quant_ms = {"int8_ms": median_ms(lambda: quant(norm), 5, torch),
-                    "bf16_ms": median_ms(lambda: bf16_gen(norm_bf16), 5,
-                                         torch)}
-    print(f"  QuantizedPackedEstimator (s=2): int8 GEMM route bit-equal to "
-          f"the float64 route on 8 clips; mean relative error from float32 "
-          f"{rel['int8']:.4f} (bf16 packed {rel['bf16']:.4f}); {n} clips "
-          f"int8 {quant_ms['int8_ms']:.3f} ms, bf16 packed "
-          f"{quant_ms['bf16_ms']:.3f} ms (median of 5)")
-    del norm, norm_bf16, raw, quant, bf16_gen, pred
-
-    # (c) a dmcnet train step with --packed-gen 2 against 0
+    # a dmcnet train step with --packed-gen 2 against 0
     argv = TRAIN_RECIPE + ["--model-prefix", os.path.join(workdir, "m")]
     args = {s_: build_parser().parse_args(argv + ["--packed-gen", s_])
             for s_ in ("0", "2")}
@@ -2569,8 +2372,7 @@ def packed_phase(torch, bt, dev, gops, smi, workdir):
                 "backtrace_gop_cells": bt.backtrace_gop_cells.launches}
     phase_s = time.perf_counter() - t_phase
     print(f"  launches in the phase {launches}; packed phase {phase_s:.1f} s")
-    return {"generator": sweep, "quantized": {**quant_ms, "rel_err": rel},
-            "train_step": train_steps, "launches": launches,
+    return {"train_step": train_steps, "launches": launches,
             "phase_s": phase_s}
 
 
@@ -3422,7 +3224,6 @@ def main():
         return 1
     from dmcnet_tpu_torch.codec.semantics import accumulate_gop_numpy
     from dmcnet_tpu_torch.codec.synthetic import block_arrays, synthetic_gop
-    from dmcnet_tpu_torch.data.transforms import IMAGENET_STD, MEAN_STD
     from dmcnet_tpu_torch.ops import _build
     from dmcnet_tpu_torch.ops import backtrace as bt
     from dmcnet_tpu_torch.serving import DMCPredictor
@@ -3539,14 +3340,14 @@ def main():
         check(cm is not None and cell == CELL, "synthetic GOP must qualify")
         rows.append((cm, cell, frames[0], pred._center_crop(frames[pick]),
                      pick))
-    arrays = pred._pack_rows(rows, G, T, H, W, CELL, PICKS)
+    inputs = pred._stage(rows, G, T, H, W, CELL, PICKS, dev)
     fn = pred._gop_program(G, T, H, W, CELL, PICKS)
     u_fn = unpacked._gop_program(G, T, H, W, CELL, PICKS)
     print(f"  set-up (models, {G} synthetic GOPs) "
           f"{time.perf_counter() - t0:.2f} s")
 
     bt.backtrace_warp_batch.launches = 0
-    logits, mv_u8, res_u8 = fn(*pred._to_device(arrays))
+    logits, mv_u8, res_u8 = fn(*inputs)
     torch.cuda.synchronize()
     launches = bt.backtrace_warp_batch.launches
     print(f"  main path (pack=True): backtrace_warp_batch launches = "
@@ -3559,14 +3360,14 @@ def main():
           and tuple(res_u8.shape) == (G, PICKS, SIZE, SIZE, 3),
           "u8 output shapes")
 
-    u_logits, u_mv, u_res = u_fn(*unpacked._to_device(arrays))
+    u_logits, u_mv, u_res = u_fn(*inputs)
     check(torch.equal(u_mv, mv_u8) and torch.equal(u_res, res_u8),
           "mv_u8/res_u8 differ between pack=True and pack=False")
     plain = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
                          input_size=SIZE, pack=False, device="cuda",
                          backtrace_impl=bt.backtrace_warp_batch_ref)
     p_logits, p_mv, p_res = plain._gop_program(G, T, H, W, CELL, PICKS)(
-        *plain._to_device(arrays))
+        *inputs)
     check(torch.equal(p_mv, mv_u8) and torch.equal(p_res, res_u8),
           "mv_u8/res_u8 differ from the plain back-trace program")
     print("  mv_u8 and res_u8 of pack=True and pack=False equal the plain "
@@ -3574,11 +3375,12 @@ def main():
           f"{float((p_logits - u_logits).abs().max()):.3g}")
 
     g_cpu = 4
-    cpu_arrays = pred._pack_rows(rows[:g_cpu], g_cpu, T, H, W, CELL, PICKS)
+    cpu_inputs = pred._stage(rows[:g_cpu], g_cpu, T, H, W, CELL, PICKS,
+                             torch.device("cpu"))
     cpu = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
                        input_size=SIZE, pack=False, device="cpu")
     c_logits, c_mv, c_res = cpu._gop_program(g_cpu, T, H, W, CELL, PICKS)(
-        *cpu._to_device(cpu_arrays))
+        *cpu_inputs)
     check(torch.equal(c_mv, mv_u8[:g_cpu].cpu())
           and torch.equal(c_res, res_u8[:g_cpu].cpu()),
           "u8 outputs differ from the CPU run")
@@ -3596,7 +3398,7 @@ def main():
     cpu_packed = DMCPredictor(pred.model.state_dict(), num_class=NUM_CLASS,
                               input_size=SIZE, device="cpu")
     cp_logits = cpu_packed._gop_program(g_cpu, T, H, W, CELL, PICKS)(
-        *cpu_packed._to_device(cpu_arrays))[0]
+        *cpu_inputs)[0]
     pack_err = {}
     for name, got, want in (
             ("pack=True vs pack=False on the card", logits, u_logits),
@@ -3609,90 +3411,17 @@ def main():
               f"(bound {PACK_TOL} x max |logit| = {PACK_TOL * scale:.4g})")
         check(err <= PACK_TOL * scale, f"{name}: logits differ by {err}")
 
-    def time_chunks(fn, p, n=20, warm=3):
-        out = []
-        for i in range(warm + n):
-            t0 = time.perf_counter()
-            fn(*p._to_device(arrays))
-            torch.cuda.synchronize()
-            if i >= warm:
-                out.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(out)
-
-    clips = G * PICKS
-    packed_chunk_ms = time_chunks(fn, pred)
-    chunk_ms = time_chunks(u_fn, unpacked)
-    print(f"  chunk ({G} GOPs, {clips} clips, host arrays -> logits; median "
-          f"of 20) on {smi}: pack=True (bf16, folded) {packed_chunk_ms:.3f} "
-          f"ms = {clips / packed_chunk_ms * 1e3:.1f} clips/s; pack=False "
-          f"{chunk_ms:.3f} ms = {clips / chunk_ms * 1e3:.1f} clips/s (fp32, "
-          "TF32 off)")
-    torch.backends.cudnn.allow_tf32 = True
-    chunk_ms_tf32 = time_chunks(u_fn, unpacked)
-    torch.backends.cudnn.allow_tf32 = False
-    print(f"  same chunk pack=False with cuDNN TF32 on: median "
-          f"{chunk_ms_tf32:.3f} ms = {clips / chunk_ms_tf32 * 1e3:.1f} "
-          "clips/s")
-
-    # where the chunk's time goes, layer by layer (CUDA events, medians)
-    def host_to_device():
-        pred._to_device(arrays)
-
-    mv_flat = mv_u8.reshape(G * PICKS, SIZE, SIZE, 2)
-    res_flat = res_u8.reshape(G * PICKS, SIZE, SIZE, 3)
-    dev_arrays = pred._to_device(arrays)
-    with torch.inference_mode():
-        mv_n = ((mv_flat.float() / 255.0 - 0.5) / MEAN_STD) \
-            .permute(0, 3, 1, 2)
-        res_n = ((res_flat.float() / 255.0 - 0.5)
-                 / torch.as_tensor(IMAGENET_STD, device=dev)) \
-            .permute(0, 3, 1, 2)
-        gen = unpacked.model.generate(mv_n, res_n)
-        stages = {
-            "host_to_device": median_ms(host_to_device, 10, torch),
-            "gop_program": median_ms(lambda: u_fn(*dev_arrays), 10, torch),
-            "forward_u8": median_ms(
-                lambda: unpacked._forward_u8(mv_flat, res_flat), 10, torch),
-            "generator": median_ms(
-                lambda: unpacked.model.generate(mv_n, res_n), 10, torch),
-            "classifier": median_ms(
-                lambda: unpacked.model.classify(gen), 10, torch),
-        }
-        raw = torch.cat([mv_flat, res_flat], -1).permute(0, 3, 1, 2) \
-            .to(torch.bfloat16)
-        packed_gen = pred.packed[0](raw)
-        packed_stages = {
-            "host_to_device": stages["host_to_device"],
-            "gop_program": median_ms(lambda: fn(*dev_arrays), 10, torch),
-            "forward_u8": median_ms(
-                lambda: pred._forward_u8(mv_flat, res_flat), 10, torch),
-            "packed_generator": median_ms(lambda: pred.packed[0](raw), 10,
-                                          torch),
-            "packed_resnet18": median_ms(
-                lambda: pred.packed_cls[0](packed_gen), 10, torch),
-        }
-    print("  breakdown pack=False (median ms, fp32): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in stages.items()))
-    print("  breakdown pack=True (median ms, bf16): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in packed_stages.items()))
-
-    cm_d, if_d = dev_arrays[:2]
+    cm_d, if_d = inputs[:2]
     ifr_d = if_d.permute(0, 3, 1, 2).to(torch.int32).contiguous()
     compare(cm_d, ifr_d, H, W, CELL, f"main-path inputs G={G} T={T} "
             f"{H}x{W} cell {CELL}")
-    # the first design's times were read with median_ms, whose window
-    # holds the wrapper's host work; the kernel's time is device time over
-    # queued launches
-    kernel_median_ms = median_ms(
-        lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20, torch)
-    print(f"  backtrace_warp_batch by the earlier method (median of 20 "
-          f"event-timed calls, host work inside): {kernel_median_ms:.4f} ms")
+    # device time over queued launches, not the wrapper's host work
     kernel_ms = device_ms_per_call(
         lambda: bt.backtrace_warp_batch(cm_d, ifr_d, H, W, CELL), 20, torch)
     plain_ms = median_ms(
         lambda: bt.backtrace_warp_batch_ref(cm_d, ifr_d, H, W, CELL), 5,
         torch)
-    n_bytes = (cm_d.numel() + ifr_d.numel() + G * T * 5 * H * W) * 4
+    n_bytes = b1_bytes(G, T, H, W, CELL)
     n_ops = OPS_PER_STEP * H * W * G * sum(range(T))
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / INT32_OPS_PER_S * 1e3
@@ -3792,14 +3521,7 @@ def main():
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"chunk_ms": chunk_ms, "chunk_ms_tf32": chunk_ms_tf32,
-                      "stages_ms": stages,
-                      "packed_chunk_ms": packed_chunk_ms,
-                      "packed_stages_ms": packed_stages,
-                      "pack_logit_err": pack_err, "packed": packed,
-                      "clips_per_chunk": clips,
-                      "clips_per_s": clips / chunk_ms * 1e3,
-                      "b1_median_ms": kernel_median_ms,
+    print(json.dumps({"pack_logit_err": pack_err, "packed": packed,
                       "b2_wrapper_ms": b2["wrapper_ms"],
                       "launch_floor_ms": b2["floor_ms"],
                       "codec_ms": codec_times,

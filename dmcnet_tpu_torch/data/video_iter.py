@@ -273,8 +273,8 @@ def i3d_augment_batch(batch, modality="flow+mp4", ds_factor=0,
     Returns dict(mv, residual, flow, label) for flow+mp4, else dict(x,
     label): (B, C, T, input_size, input_size) float32 and (B,) int64.
     Only the box of pixels the batch's crops read (`transforms.crop_box`,
-    from the numpy specs) leaves the host: to a card through a reused
-    pinned buffer (`PinnedStaging`), to the CPU as it is.  The copy runs
+    from the numpy specs) leaves the host, through a reused buffer
+    (`PinnedStaging`, pinned on a card) on every device.  The copy runs
     inside the `data.i3d_h2d` span (`utils.profiling.span`), which counts
     the u8 `bytes` of the box, the u8 bytes of the crops the model reads
     (`kept`), and `pinned` (1 when staged through the pinned buffer)."""
@@ -283,13 +283,11 @@ def i3d_augment_batch(batch, modality="flow+mp4", ds_factor=0,
     y0, y1, x0, x1 = T.crop_box(batch["scales"], batch["translations"],
                                 input_size, h, w)
     box = batch["frames"][:, :, y0:y1, x0:x1]
-    pinned = dev.type == "cuda"
-    with span("data.i3d_h2d", bytes=box.nbytes,
-              kept=b * t * input_size * input_size * c, pinned=int(pinned)):
-        if pinned:
-            frames = _STAGING.to_device(box, dev)
-        else:
-            frames = torch.from_numpy(np.ascontiguousarray(box)).to(dev)
+    with _STAGING.take(dev) as slot, span(
+            "data.i3d_h2d", bytes=box.nbytes,
+            kept=b * t * input_size * input_size * c,
+            pinned=int(slot.pinned)):
+        frames = slot.to_device(box)
     frames = frames.permute(0, 1, 4, 2, 3).float()  # (B, T, C, H, W)
     out = T.apply_crops(frames, batch["scales"], batch["translations"],
                         batch["flips"], out_size=input_size,

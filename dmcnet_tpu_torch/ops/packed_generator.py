@@ -27,8 +27,6 @@ after a transpose.
   * `pack_conv3x3_torch` is the differentiable pack that
     `models.generators._DenseEstimator(packed=s)` (`--packed-gen s`) trains
     and scores with: the same parameters, gradients reaching them.
-  * `QuantizedPackedEstimator` is experimental int8 inference, off every
-    path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -188,19 +186,16 @@ class PackedDenseEstimator(nn.Module):
     becomes a bias.  SAME zero padding gives border pixels fewer raw taps,
     so that bias is a per-position plane (`bias_plane`: interior the full
     sum, the border ring its in-bounds taps only), built once per shape
-    and device.  `memory_format` is the layout the convolutions run in
-    (NCHW, or `torch.channels_last` throughout the dense concat)."""
+    and device."""
 
     def __init__(self, estimator, s=2, dtype=torch.bfloat16,
-                 packed_output=False, fuse_mv_delta=False, input_affine=None,
-                 memory_format=torch.contiguous_format):
+                 packed_output=False, fuse_mv_delta=False, input_affine=None):
         super().__init__()
         convs = _dense_convs(estimator)
         ch_in = convs[0][1].in_channels
         self.s, self.ch_in, self.dtype = s, ch_in, dtype
         self.packed_output = packed_output
         self.input_affine = input_affine
-        self.memory_format = memory_format
         if input_affine is not None:
             a_in = np.asarray(input_affine[0], np.float32)
             b_in = np.asarray(input_affine[1], np.float32)
@@ -231,8 +226,8 @@ class PackedDenseEstimator(nn.Module):
                         tap_s += wp[:, row] * b_in[ci]
                         wp[:, row] *= a_in[ci]
                 self._tap_shift.append(tap_s)
-            self.register_buffer(f"weight_{i}", torch.from_numpy(wp).to(
-                dtype).contiguous(memory_format=memory_format))
+            self.register_buffer(f"weight_{i}",
+                                 torch.from_numpy(wp).to(dtype))
             self.register_buffer(f"bias_{i}", torch.from_numpy(bp).to(dtype))
             if i < len(convs) - 1:
                 segments = [conv.out_channels] + segments
@@ -266,8 +261,7 @@ class PackedDenseEstimator(nn.Module):
         if x.shape[2] % s or x.shape[3] % s:
             raise ValueError(f"H, W = {tuple(x.shape[2:])} do not divide by "
                              f"the packing factor {s}")
-        h = space_to_depth(x.to(self.dtype), s).contiguous(
-            memory_format=self.memory_format)
+        h = space_to_depth(x.to(self.dtype), s)
         for i in range(self.n_layers):
             wp, bp = self.layer(i)
             if self.input_affine is not None:
@@ -279,84 +273,3 @@ class PackedDenseEstimator(nn.Module):
             if i < self.n_layers - 1:
                 h = torch.cat([F.leaky_relu(y, _LEAKY_SLOPE), h], dim=1)
         return y if self.packed_output else depth_to_space(y, s)
-
-
-def int_conv3x3_f64(h_q, w_q):
-    """Exact int32 sums of a 3x3 SAME conv of int8 activations `h_q` (B, C,
-    H, W) with int8 weights `w_q` (N, C, 3, 3): a float64 convolution of
-    the int8 values, exact since every partial sum stays far below 2**53.
-    The CPU route of `QuantizedPackedEstimator`."""
-    return F.conv2d(h_q.double(), w_q.double(), padding=1).to(torch.int32)
-
-
-def int_conv3x3_gemm(h_q, w_q):
-    """The same sums as an int8 implicit GEMM, the card's route: the 9
-    shifted views gathered into (B*H*W, 9C) int8 rows, K and N padded to
-    multiples of 8, one `torch._int_mm` accumulating in int32."""
-    b, c, hh, ww = h_q.shape
-    n, k = w_q.shape[0], 9 * c
-    k8, n8 = -(-k // 8) * 8, -(-n // 8) * 8
-    hp = F.pad(h_q, (1, 1, 1, 1))
-    a = h_q.new_zeros((b * hh * ww, k8))
-    # row (b, y, x), column (c, ky, kx): the OIHW weight's flattening
-    a[:, :k] = torch.stack([hp[:, :, dy:dy + hh, dx:dx + ww]
-                            for dy in range(3) for dx in range(3)], dim=-1) \
-        .permute(0, 2, 3, 1, 4).reshape(b * hh * ww, k)
-    wt = w_q.new_zeros((n8, k8))
-    wt[:n, :k] = w_q.reshape(n, k)
-    out = torch._int_mm(a, wt.t())[:, :n]
-    return out.reshape(b, hh, ww, n).permute(0, 3, 1, 2)
-
-
-class QuantizedPackedEstimator(nn.Module):
-    """EXPERIMENTAL int8 inference of the packed generator, as in the JAX
-    package: off every path.
-
-    Per-output-channel weight scales and per-layer activation scales from
-    one float32 calibration forward over `calib_x`; each packed conv runs
-    int8 x int8 -> int32 (`int_conv3x3_gemm` on the card,
-    `int_conv3x3_f64` on the CPU: the same exact sums), then dequantizes
-    and adds the bias in float32.  Its error against float32 is bounded
-    by the tests (under 5% mean relative)."""
-
-    def __init__(self, estimator, calib_x, s=2):
-        super().__init__()
-        base = PackedDenseEstimator(estimator, s=s, dtype=torch.float32)
-        self.s, self.n_layers = s, base.n_layers
-        self.a_scales = []
-        h = space_to_depth(calib_x.detach().float().cpu(), s)
-        for i in range(self.n_layers):
-            wp, bp = base.layer(i)
-            a_scale = float(h.abs().max()) / 127.0 + 1e-8
-            w = wp.numpy()
-            w_scale = np.abs(w).reshape(w.shape[0], -1).max(axis=1) \
-                / 127.0 + 1e-8
-            w_q = np.clip(np.round(w / w_scale[:, None, None, None]),
-                          -127, 127).astype(np.int8)
-            self.a_scales.append(a_scale)
-            self.register_buffer(f"weight_q_{i}", torch.from_numpy(w_q))
-            self.register_buffer(f"dequant_{i}", torch.from_numpy(
-                (w_scale * a_scale).astype(np.float32)))
-            self.register_buffer(f"bias_{i}", bp.clone())
-            with torch.no_grad():
-                y = F.conv2d(h, wp, bp, padding=1)
-            if i < self.n_layers - 1:
-                h = torch.cat([F.leaky_relu(y, _LEAKY_SLOPE), h], dim=1)
-
-    def forward(self, x, int_conv=None):
-        """`int_conv` replaces the route chosen by the device (a check
-        runs both on one card)."""
-        if int_conv is None:
-            int_conv = int_conv3x3_gemm if x.device.type == "cuda" \
-                else int_conv3x3_f64
-        s = self.s
-        h = space_to_depth(x.float(), s)
-        for i in range(self.n_layers):
-            h_q = torch.clamp(torch.round(h / self.a_scales[i]), -127, 127) \
-                .to(torch.int8)
-            y = int_conv(h_q, getattr(self, f"weight_q_{i}")).float() \
-                * getattr(self, f"dequant_{i}")[:, None, None] \
-                + getattr(self, f"bias_{i}")[:, None, None]
-            if i < self.n_layers - 1:
-                h = torch.cat([F.leaky_relu(y, _LEAKY_SLOPE), h], dim=1)
-        return depth_to_space(y, s)

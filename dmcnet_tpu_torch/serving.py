@@ -211,10 +211,20 @@ class DMCPredictor:
         sizes.append(chunk_gops)
         return sizes
 
+    def _chunk_shape(self, n, t, picks, frames_per_gop, chunk_gops):
+        """The padded shape `(g, tmax, n_pick)` a chunk of `n` GOP rows of
+        at most `t` frames and `picks` picks runs at: `g` the first rung of
+        `_chunk_ladder(chunk_gops)` that holds `n` (a ragged tail pads only
+        to the next rung), `tmax` `t` rounded up to a multiple of 12, and
+        `n_pick` at least `frames_per_gop`.  `warmup` launches what traffic
+        at its geometry runs, since both take their shapes here."""
+        g = next(s for s in self._chunk_ladder(chunk_gops) if s >= n)
+        return g, max(12, -(-t // 12) * 12), max(frames_per_gop, picks)
+
     def _gop_program(self, g, t, h, w, cell, n_pick, replica=0):
         """GOP-batch program for one shape on the device of `replica`:
-        tensors from `_pack_rows` (cell MVs, I-frames, cropped picked
-        frames, picks) on that device ->
+        tensors from `_stage` (cell MVs, I-frames, cropped picked frames,
+        picks) on that device ->
         (logits (g*n_pick, C), mv_u8 (g, n_pick, S, S, 2),
         res_u8 (g, n_pick, S, S, 3)).
 
@@ -293,11 +303,17 @@ class DMCPredictor:
         return out
 
     def _stage(self, rows, g, tmax, h, w, cell, n_pick, device):
-        """`_to_device(_pack_rows(...), device)` through the predictor's
-        `PinnedStaging`: the real rows are written into a reused host buffer
-        (pinned on a card) and sent with `non_blocking` copies on the
-        device's current stream; the padded rows `[len(rows):g]` are set on
-        the device as `_pack_rows` makes them (zeros, picks 1), so they
+        """GOP rows `(cm, cell_of_cm, iframe, fp, pick)` -> `_gop_program`'s
+        four inputs on `device`, padded to `g` rows: cell MVs
+        (g, tmax, H/cell, W/cell, 2) int32 (a 16-grid expands exactly to
+        8), I-frames (g, H, W, 3) uint8, cropped picked frames
+        (g, n_pick, S, S, 3) uint8, picks (g, n_pick) int64 (edge-padded;
+        padded slots re-score a real frame and are dropped by the caller).
+
+        The real rows are written into a reused host buffer of the
+        predictor's `PinnedStaging` (pinned on a card) and sent with
+        `non_blocking` copies on the device's current stream; the padded
+        rows `[len(rows):g]` are set on the device (zeros, picks 1), so they
         cross no bus.  The `serving.pack` span counts the `bytes` written
         and `waited` (1 when the buffer's last copies had not completed);
         `serving.h2d` the `bytes` sent and, of them, `pinned_bytes`."""
@@ -346,13 +362,13 @@ class DMCPredictor:
         and cuDNN's first-call set-up then happen here, not on a request.
 
         `geometries` are (height, width) or (height, width, t[, cell])
-        tuples; the full `_chunk_ladder(chunk_gops)` runs per geometry.
-        `host_buckets` runs the host-path classifier at those clip
-        counts."""
+        tuples of GOPs of `t` frames; per geometry every rung of the chunk
+        ladder runs at the shape `predict_videos` gives its chunks
+        (`_chunk_shape`).  `host_buckets` runs the host-path classifier at
+        those clip counts."""
         quant = self._gop_quant
         top = -(-chunk_gops // quant) * quant
         size = self.input_size
-        ladder = self._chunk_ladder(top)
         for geom in geometries:
             h, w = geom[0], geom[1]
             t_g = geom[2] if len(geom) > 2 else t
@@ -363,9 +379,10 @@ class DMCPredictor:
                    np.ones(frames_per_gop, np.int64))
             # the largest rung first, twice: each of a card's two staging
             # buffers is sized for it at once
-            for g in [top] + ladder[::-1]:
-                self._launch([row] * g, g, t_g, h, w, cell_g,
-                             frames_per_gop)
+            for n in [top] + self._chunk_ladder(top)[::-1]:
+                g, tmax, n_pick = self._chunk_shape(
+                    n, t_g, frames_per_gop, frames_per_gop, top)
+                self._launch([row] * g, g, tmax, h, w, cell_g, n_pick)
         for n in host_buckets:
             self._forward_u8_mesh(np.zeros((n, size, size, 2), np.uint8),
                                   np.zeros((n, size, size, 3), np.uint8))
@@ -413,6 +430,17 @@ class DMCPredictor:
                     np.asarray([d[p][0] for p in sorted(d)], np.float32))
                 for g, d in by_gop.items()}
 
+    def _picks(self, n, frames_per_gop, seg=None):
+        """(picks, weights) of a GOP of `n` frames: `seg`, this GOP's
+        `_segment_picks` entry, clipped to the GOP, or else
+        `frames_per_gop` evenly spaced P-frames of weight 1."""
+        if seg is not None:
+            p, w = seg
+            return np.minimum(p, n - 1), w
+        p = np.linspace(1, n - 1, min(frames_per_gop, n - 1))
+        p = np.unique(np.round(p).astype(np.int32))
+        return p, np.ones(len(p), np.float32)
+
     def predict_video(self, path, frames_per_gop=3, backend="auto",
                       segments=None):
         """Weighted mean of logits over sampled P-frames: `frames_per_gop`
@@ -424,22 +452,22 @@ class DMCPredictor:
         (the host entropy-decodes only); "host" is the native-accumulate
         path; "auto" takes the device path and falls back to the host path
         only when the stream does not qualify (unaligned blocks, |mv|
-        beyond `max_mv`, more than 255 frames in a GOP).  An error raised
-        by the device program or the kernel propagates."""
+        beyond `max_mv`, more than 255 frames in a GOP).  The device paths
+        are `predict_videos` of the one video.  An error raised by the
+        device program or the kernel propagates."""
         if backend in ("auto", "device"):
-            out = self._predict_video_device(path, frames_per_gop,
-                                             segments=segments)
-            if out is not None:
-                return out
-            if backend == "device":
-                raise ValueError(
-                    f"{path}: stream does not qualify for the device "
-                    "back-trace path")
+            return self.predict_videos([path], frames_per_gop, backend,
+                                       segments=segments)[0]
+        return self._predict_video_host(path, frames_per_gop, segments)
+
+    def _predict_video_host(self, path, frames_per_gop, segments):
+        """The host path of one video: the native decode accumulates each
+        GOP's MV and residual, the picked frames are cropped on the host
+        and classified over the mesh."""
         with span("serving.gather"):
             mvs, ress, wts = [], [], []
             reader = shared_reader_cache().get(path)
-            by_gop = (self._segment_picks(reader, segments) if segments
-                      else None)
+            by_gop = self._segment_picks(reader, segments) if segments else {}
             gops = sorted(by_gop) if segments else range(reader.num_gops)
             for g in gops:
                 frames, mv_maps = reader.decode_gop(g)
@@ -448,14 +476,8 @@ class DMCPredictor:
                 mv, res = gop_mv_residual_u8(
                     mv_maps, frames, True,
                     20 if self.mv_minmaxnorm else None)
-                if segments:
-                    pick, w = by_gop[g]
-                    pick = np.minimum(pick, len(frames) - 1)
-                else:
-                    pick = np.linspace(1, len(frames) - 1,
-                                       min(frames_per_gop, len(frames) - 1))
-                    pick = np.unique(np.round(pick).astype(int))
-                    w = np.ones(len(pick), np.float32)
+                pick, w = self._picks(len(frames), frames_per_gop,
+                                      by_gop.get(g))
                 mvs.append(self._center_crop(mv[pick]))
                 ress.append(self._center_crop(res[pick]))
                 wts.append(w)
@@ -479,23 +501,16 @@ class DMCPredictor:
         cms, gop_data, picks, counts, weights = [], [], [], [], []
         reader = shared_reader_cache().get(path)
         h, w = reader.height, reader.width
-        by_gop = self._segment_picks(reader, segments) if segments else None
+        by_gop = self._segment_picks(reader, segments) if segments else {}
         gops = sorted(by_gop) if segments else range(reader.num_gops)
         for gidx in gops:
-            def picks_for(n):
-                if segments:
-                    p, w_ = by_gop[gidx]
-                    return np.minimum(p, n - 1), w_
-                p = np.linspace(1, n - 1, min(frames_per_gop, n - 1))
-                p = np.unique(np.round(p).astype(np.int32))
-                return p, np.ones(len(p), np.float32)
-
             # Picks are known from the GOP length before decoding, so the
             # decoder skips the YUV->BGR conversion of every other frame.
             n_exp = reader.gop_len(gidx)
             keep = None
             if n_exp >= 2:
-                pick, wt = picks_for(n_exp)
+                pick, wt = self._picks(n_exp, frames_per_gop,
+                                       by_gop.get(gidx))
                 # a bool mask: an integer array would be read as indices
                 keep = np.zeros(n_exp, bool)
                 keep[0] = True
@@ -508,7 +523,8 @@ class DMCPredictor:
                 # decode shortfall: the predicted picks are invalid
                 frames, _, blocks, n_blocks = reader.decode_gop_blocks(
                     gidx, skip_dense=True)
-                pick, wt = picks_for(len(frames))
+                pick, wt = self._picks(len(frames), frames_per_gop,
+                                       by_gop.get(gidx))
             cm, cell = cell_mv_from_blocks(blocks, n_blocks, h, w)
             if cm is None:
                 return None
@@ -521,23 +537,6 @@ class DMCPredictor:
         if not cms:
             return None
         return cms, gop_data, picks, counts, weights, h, w
-
-    def _pack_rows(self, rows, g, tmax, h, w, cell, n_pick):
-        """GOP rows `(cm, cell_of_cm, iframe, fp, pick)` -> the four host
-        arrays of `_gop_program`, padded to `g` rows: cell MVs
-        (g, tmax, H/cell, W/cell, 2) int32 (a 16-grid expands exactly to
-        8), I-frames (g, H, W, 3) uint8, cropped picked frames
-        (g, n_pick, S, S, 3) uint8, picks (g, n_pick) int64 (edge-padded;
-        padded slots re-score a real frame and are dropped by the
-        caller)."""
-        arrays = tuple(torch.full((g,) + s, pad, dtype=dt).numpy()
-                       for s, dt, pad in self._row_specs(tmax, h, w, cell,
-                                                         n_pick))
-        self._fill_rows([a[:len(rows)] for a in arrays], rows, cell)
-        pk_b = arrays[3]
-        if pk_b.min(initial=0) < 0 or pk_b.max(initial=0) >= tmax:
-            raise ValueError(f"picks out of range [0, {tmax})")
-        return arrays
 
     @staticmethod
     def _fill_rows(views, rows, cell):
@@ -559,29 +558,6 @@ class DMCPredictor:
             fp_v[i, len(fp):] = 0
             pk_v[i, :len(pick)] = pick
             pk_v[i, len(pick):] = pick[-1]
-
-    def _predict_video_device(self, path, frames_per_gop=3, segments=None):
-        """Device-path inference of one video; None when any GOP
-        disqualifies (the caller falls back to the host path)."""
-        gathered = self._gather_video_device(path, frames_per_gop,
-                                             segments=segments)
-        if gathered is None:
-            return None
-        cms, gop_data, picks, counts, weights, h, w = gathered
-        cell = min(c for _, c in cms)
-        tmax = max(t for _, _, t in gop_data)
-        if tmax > 255:
-            return None  # same routing as the JAX package (u8 picks there)
-        g_pad = -(-len(cms) // self._gop_quant) * self._gop_quant
-        n_pick = max(frames_per_gop, max(counts))
-        rows = [(cm, c, iframe, fp, pick) for (cm, c), (iframe, fp, _), pick
-                in zip(cms, gop_data, picks)]
-        logits = self.gather_outputs(self._launch(
-            rows, g_pad, tmax, h, w, cell, n_pick))[0]
-        logits = logits.reshape(g_pad, n_pick, -1)
-        rows = np.concatenate([logits[i, :k] for i, k in enumerate(counts)])
-        wts = np.concatenate(weights)
-        return (rows * wts[:, None]).sum(axis=0) / wts.sum()
 
     def predict_videos(self, paths, frames_per_gop=3, backend="auto",
                        chunk_gops=64, host_workers=0, on_error="raise",
@@ -658,16 +634,14 @@ class DMCPredictor:
                 return None, exc
 
         def dispatch(hw, chunk):
-            """Pack one chunk and enqueue it on the device.  tmax rounds up
-            to a multiple of 12 and the cell / pick count are chunk-wide;
-            a ragged tail pads only to the next `_chunk_ladder` size."""
+            """Stage one chunk and enqueue it on the device, at
+            `_chunk_shape`'s padded shape; the cell is chunk-wide."""
             h, w = hw
-            g = next(s for s in self._chunk_ladder(chunk_gops)
-                     if s >= len(chunk))
+            g, tmax, n_pick = self._chunk_shape(
+                len(chunk), max(t for *_, t in chunk),
+                max(len(pk) for *_, pk, _, _, _ in chunk), frames_per_gop,
+                chunk_gops)
             cell = min(c for *_, c, _ in chunk)
-            tmax = max(12, -(-max(t for *_, t in chunk) // 12) * 12)
-            n_pick = max(frames_per_gop,
-                         max(len(pk) for *_, pk, _, _, _ in chunk))
             rows = [(cm, c, iframe, fp, pick)
                     for (_, cm, iframe, fp, pick, _, c, _) in chunk]
             in_flight.append((self._launch(rows, g, tmax, h, w, cell,
@@ -686,9 +660,8 @@ class DMCPredictor:
                     zero_score(p, exc)
                     return
                 try:
-                    results[p] = self.predict_video(p, frames_per_gop,
-                                                    backend="host",
-                                                    segments=segments)
+                    results[p] = self._predict_video_host(
+                        p, frames_per_gop, segments)
                 except device_faults:
                     raise  # device faults abort, whatever on_error says
                 except Exception as exc:  # noqa: BLE001 — data errors

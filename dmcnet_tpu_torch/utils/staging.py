@@ -5,9 +5,9 @@ pinned for a card, taken in turn.  The CUDA event recorded behind the
 copies last queued from a buffer guards it: a refill waits only for those
 copies, never for the compute they feed.  I3D evaluation sends a clip's
 crop box through one buffer a device (`data.video_iter._STAGING`, via
-`to_device`); serving fills GOP chunks in two (`serving.DMCPredictor`,
-via `take`), so that a third chunk in flight does not wait behind the
-first one's compute."""
+`to_device`, on the CPU as on a card); serving fills GOP chunks in two
+(`serving.DMCPredictor`, via `take`), so that a third chunk in flight does
+not wait behind the first one's compute."""
 
 from __future__ import annotations
 
@@ -39,6 +39,15 @@ class Slot:
             self.buf = torch.empty(nbytes, dtype=torch.uint8,
                                    pin_memory=self.pinned)
         return self.buf
+
+    def to_device(self, array):
+        """`PinnedStaging.to_device` through this buffer."""
+        host = self.buffer(array.nbytes)[:array.nbytes].view(array.shape)
+        host.copy_(torch.from_numpy(array))
+        out = torch.empty(array.shape, dtype=torch.uint8, device=self.device)
+        out.copy_(host, non_blocking=True)
+        self.sent()
+        return out
 
     def sent(self):
         """Record the event behind the copies just queued from the buffer
@@ -75,11 +84,10 @@ class PinnedStaging:
             yield slot
 
     def to_device(self, array, device):
-        """The numpy u8 `array` (any strides) as a contiguous tensor on the
-        CUDA `device`, its copy queued on the device's current stream."""
+        """The numpy u8 `array` (any strides) as a fresh contiguous tensor
+        on `device`: written into the next buffer, then copied
+        `non_blocking` on the device's current stream (the copy `_stage` of
+        `serving.DMCPredictor` makes too).  On the CPU the buffer is
+        unpinned and the tensor a copy of it."""
         with self.take(device) as slot:
-            host = slot.buffer(array.nbytes)[:array.nbytes].view(array.shape)
-            host.copy_(torch.from_numpy(array))
-            out = host.to(device, non_blocking=True)
-            slot.sent()
-        return out
+            return slot.to_device(array)

@@ -14,11 +14,6 @@ Tolerances:
   * the packed `_DenseEstimator` in float64 against the unpacked one,
     forward and parameter gradients: rtol 1e-10; odd shapes fall back and
     are equal;
-  * `QuantizedPackedEstimator`: under 5% mean relative error against
-    float32 (the JAX package's bound), and within 1% mean relative of the
-    JAX package's quantized output (the calibration's float32 maxima differ
-    in the last bits, which can move an activation across a rounding
-    boundary of its int8 grid);
   * `DMCPredictor(pack=True)` in bfloat16: u8 outputs bit-equal; logits and
     video scores within atol 2e-2 (bfloat16 has 8 significant bits and the
     two packages round the folded-normalize bias plane at different
@@ -51,7 +46,6 @@ from test_torch_train import flax_init
 GEN_ATOL = 2e-4
 RES_RTOL = RES_ATOL = 2e-4
 F64_RTOL = 1e-10
-QUANT_REL, QUANT_JAX_REL = 0.05, 0.01
 BF16_ATOL = 2e-2
 NUM_CLASS, HW = 7, 64
 # the serving normalize as an affine, the way the JAX predictor builds it
@@ -261,34 +255,6 @@ def test_packed_training_forward_and_grads_float64(arch, s):
         assert torch.equal(packed(odd), plain(odd))
 
 
-def test_quantized_estimator(tiny):
-    """Within 5% of float32 and 1% of the JAX package's int8 output; the
-    card's int8 GEMM route gives the float64 route's sums exactly (here on
-    the CPU's `torch._int_mm`)."""
-    params, est = tiny
-    rng = np.random.default_rng(3)
-    x = rng.normal(size=(2, 16, 16, 5)).astype(np.float32)
-    q = tpg.QuantizedPackedEstimator(est, nchw(x), s=2)
-    with torch.no_grad():
-        ref = nhwc(est(nchw(x)))
-        got = nhwc(q(nchw(x)))
-        gemm = nhwc(q(nchw(x), int_conv=tpg.int_conv3x3_gemm))
-    np.testing.assert_array_equal(gemm, got)
-    rel = np.abs(got - ref).mean() / np.abs(ref).mean()
-    assert rel < QUANT_REL, rel
-    want = np.asarray(jax.jit(jpg.QuantizedPackedEstimator(
-        params, calib_x=x, s=2))(jnp.asarray(x)))
-    rel_jax = np.abs(got - want).mean() / np.abs(want).mean()
-    print(f"int8 vs float32 {rel:.4f}, vs the JAX package {rel_jax:.2e}")
-    assert rel_jax < QUANT_JAX_REL, rel_jax
-    h_q = torch.from_numpy(rng.integers(-127, 128, size=(2, 13, 6, 10))
-                           .astype(np.int8))
-    w_q = torch.from_numpy(rng.integers(-127, 128, size=(5, 13, 3, 3))
-                           .astype(np.int8))
-    assert torch.equal(tpg.int_conv3x3_gemm(h_q, w_q),
-                       tpg.int_conv3x3_f64(h_q, w_q))
-
-
 @pytest.fixture(scope="module")
 def predictors(flax_variables):
     """(JAX pack=True predictor, the port's pack=True and pack=False
@@ -330,12 +296,10 @@ def test_predictor_pack_matches_jax(predictors, clips):
             pick = np.array([1, 6, len(frames) - 1])
             rows.append((cm, cell, frames[0],
                          tp._center_crop(frames[pick]), pick))
-    arrays = tp._pack_rows(rows, 4, 12, h, w, cell, 3)
-    logits_t, mv_t, res_t = tp._gop_program(4, 12, h, w, cell, 3)(
-        *tp._to_device(arrays))
-    buf = jp._pack_gop_buffer(*arrays[:3], arrays[3].astype(np.uint8))
+    inputs = tp._stage(rows, 4, 12, h, w, cell, 3, torch.device("cpu"))
+    logits_t, mv_t, res_t = tp._gop_program(4, 12, h, w, cell, 3)(*inputs)
     logits_j, mv_j, res_j = jp._gop_program(4, 12, h, w, cell, 3)(
-        jnp.asarray(buf))
+        jnp.asarray(jp._pack_rows(rows, 4, 12, h, w, cell, 3)))
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(res_t.numpy(), np.asarray(res_j))
     want = np.asarray(logits_j, np.float32)
@@ -344,8 +308,8 @@ def test_predictor_pack_matches_jax(predictors, clips):
           f"{float(np.abs(want).max()):.3g} (atol {BF16_ATOL})")
     np.testing.assert_allclose(logits_t.numpy(), want, atol=BF16_ATOL)
     np.testing.assert_allclose(
-        unpacked._gop_program(4, 12, h, w, cell, 3)(
-            *unpacked._to_device(arrays))[0].numpy(), want, atol=BF16_ATOL)
+        unpacked._gop_program(4, 12, h, w, cell, 3)(*inputs)[0].numpy(),
+        want, atol=BF16_ATOL)
     got = tp.predict_videos(clips, chunk_gops=4)
     for a, b in zip(got, jp.predict_videos(clips, chunk_gops=4)):
         np.testing.assert_allclose(a, np.asarray(b, np.float32),

@@ -84,12 +84,10 @@ def test_gop_program_u8_bit_equal_to_jax(predictors, clips):
                          tp._center_crop(frames[pick]), pick))
     assert len(rows) >= 2
     g, t, n_pick = 4, 12, 3
-    cm_b, if_b, fp_b, pk_b = tp._pack_rows(rows, g, t, h, w, cell, n_pick)
     logits_t, mv_t, res_t = tp._gop_program(g, t, h, w, cell, n_pick)(
-        *tp._to_device((cm_b, if_b, fp_b, pk_b)))
-    buf = jp._pack_gop_buffer(cm_b, if_b, fp_b, pk_b.astype(np.uint8))
+        *tp._stage(rows, g, t, h, w, cell, n_pick, torch.device("cpu")))
     logits_j, mv_j, res_j = jp._gop_program(g, t, h, w, cell, n_pick)(
-        jnp.asarray(buf))
+        jnp.asarray(jp._pack_rows(rows, g, t, h, w, cell, n_pick)))
     np.testing.assert_array_equal(mv_t.numpy(), np.asarray(mv_j))
     np.testing.assert_array_equal(res_t.numpy(), np.asarray(res_j))
     np.testing.assert_allclose(logits_t.numpy(), np.asarray(logits_j),

@@ -103,10 +103,8 @@ def test_mesh_gop_program_matches_jax(predictors, clips):
     finally:
         tp._backtrace = real
     assert calls == [3, 3, 2]
-    cm_b, if_b, fp_b, pk_b = tp._pack_rows(rows, g, t, h, w, cell, n_pick)
-    buf = jp._pack_gop_buffer(cm_b, if_b, fp_b, pk_b.astype(np.uint8))
     logits_j, mv_j, res_j = jp._gop_program(g, t, h, w, cell, n_pick)(
-        jnp.asarray(buf))
+        jnp.asarray(jp._pack_rows(rows, g, t, h, w, cell, n_pick)))
     np.testing.assert_array_equal(mv_t, np.asarray(mv_j))
     np.testing.assert_array_equal(res_t, np.asarray(res_j))
     np.testing.assert_allclose(logits_t, np.asarray(logits_j), rtol=RTOL,
