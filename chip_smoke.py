@@ -188,6 +188,16 @@ dispatcher).  Phases:
                  device's busy share over the traced window; python -m
                  dmcnet_tpu_torch --help in a subprocess; B1 and B2 counted
                  around the phase (0)
+15b. epilogue    the bottleneck epilogue (ops/bn_epilogue.py, nvcc of
+                 ops/csrc/bn_epilogue.cu): the I-frame cell's PlainTSN
+                 ResNet-152 (its configuration, seeded weights calibrated
+                 as its set-up does) on 250 clips at 224² with every
+                 epilogue call recorded (151 launches, counted from 0);
+                 the kernel against its plain version at each distinct
+                 shape and residual mode recorded, ReLU on and off, within
+                 EPI_RTOL of the largest value; the launches replayed
+                 queued: device time a forward beside the byte bound, and
+                 the plain version's
  16. videos      encode_mpeg4 -> predict_videos(backend="device"), when the
                  native decoder builds (FFmpeg development files present);
                  otherwise one line says the phase did not run and why
@@ -202,6 +212,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -336,6 +347,12 @@ PP_VIDEOS = 4
 # The utils phase: --viz over VIZ_VIDEOS videos; --profile-dir over one
 # epoch of PROFILE_BATCHES batches (steps 2-7 traced).
 VIZ_VIDEOS, PROFILE_BATCHES = 2, 10
+# The epilogue phase: the I-frame cell's forward (its configuration,
+# ResNet-152 at 224², EPI_CLIPS clips: 25 segments x 10 crops).  The
+# kernel rounds every operation once, as its plain version: EPI_RTOL of
+# the largest value is a bound, not the expected error.
+EPI_CONFIG = "benchmark/configs/coviar_iframe_r152.json"
+EPI_CLIPS, EPI_RTOL = 250, 1e-6
 # (cell, H, W, T) the kernels must mask: widths whose rows do not fill a
 # block's run of pixels, one and three cell rows, and T of one frame, one
 # pair and an odd count (the middle frame walks alone).
@@ -3215,6 +3232,151 @@ def utils_phase(torch, bt, dev, gops, smi, workdir):
         "loop_s": loop_s}, "launches": launches, "phase_s": phase_s}
 
 
+def epilogue_calls(forward):
+    """forward() with each `bn_epilogue` call of `models/resnet.py`
+    recorded, `bn_epilogue.launches` set to 0 just before -> (its result,
+    the calls: (y's shape, bn, residual mode (0 none, 1 the identity, 2
+    BN'd), residual_bn, relu) each)."""
+    from dmcnet_tpu_torch.models import resnet
+    from dmcnet_tpu_torch.ops import bn_epilogue as epi
+
+    calls, real = [], resnet.bn_epilogue
+
+    def recording(y, bn, residual=None, residual_bn=None, relu=True):
+        calls.append((tuple(y.shape), bn, (residual is not None)
+                      + (residual_bn is not None), residual_bn, relu))
+        return real(y, bn, residual, residual_bn, relu)
+
+    resnet.bn_epilogue = recording
+    try:
+        epi.bn_epilogue.launches = 0
+        out = forward()
+    finally:
+        resnet.bn_epilogue = real
+    return out, calls
+
+
+def epilogue_check(torch, calls, seed=0):
+    """The epilogue against its plain version at each distinct (shape,
+    residual mode) of `calls`, ReLU on and off, with the calls' own
+    BatchNorms, on normal draws in channels_last -> (the largest |kernel -
+    plain| / max |plain| of the cases, the cases bit-equal, the cases)."""
+    from dmcnet_tpu_torch.ops import bn_epilogue as epi
+
+    cases = {}
+    for shape, bn, mode, residual_bn, _ in calls:
+        cases.setdefault((shape, mode), (bn, residual_bn))
+    dev = calls[0][1].weight.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev).contiguous(
+            memory_format=torch.channels_last)
+
+    worst, exact = 0.0, 0
+    with torch.no_grad():
+        for (shape, mode), (bn, residual_bn) in cases.items():
+            y0, r = draw(shape), draw(shape) if mode else None
+            for relu in (True, False):
+                got = epi.bn_epilogue(y0.clone(), bn, r, residual_bn, relu)
+                want = epi.bn_epilogue_ref(y0.clone(), bn, r, residual_bn,
+                                           relu)
+                worst = max(worst, float((got - want).abs().max()
+                                         / want.abs().max()))
+                exact += bool(torch.equal(got, want))
+            del y0, r, got, want
+    return worst, exact, 2 * len(cases)
+
+
+def epilogue_phase(torch, bt, dev, gops, smi, workdir):
+    """15b. The I-frame cell's ResNet-152 forward with its epilogue
+    launches recorded; the kernel against its plain version at each
+    distinct shape and residual mode it launched, ReLU on and off; the
+    launches replayed for the kernel's device time a forward, its byte
+    bound and the plain version's time."""
+    import os
+
+    from benchmark import weights
+    from benchmark.reference import coviar as ref
+    from benchmark.reference.precision import strict_fp32
+    from dmcnet_tpu_torch.models.tsn import PlainTSN
+    from dmcnet_tpu_torch.ops import _build
+    from dmcnet_tpu_torch.ops import bn_epilogue as epi
+
+    phase("epilogue")
+    t0 = time.perf_counter()
+    lib_path, report = _build.build("bn_epilogue")
+    print(f"built {lib_path} in {time.perf_counter() - t0:.2f} s")
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip())
+
+    # the cell's network: seeded weights calibrated as its set-up does,
+    # the PlainTSN on one video's 25 segments x 10 crops
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           EPI_CONFIG)) as f:
+        cfg = json.load(f)
+    geo = cfg["frame"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randint(
+        0, 256, (EPI_CLIPS // cfg["test_crops"], geo["height"],
+                 geo["width"], geo["channels"]),
+        generator=gen, device=dev, dtype=torch.uint8)
+    sd = weights.make_state(ref.shapes(cfg), 0, dev)
+    with strict_fp32():
+        ref.calibrate(sd, cfg, frames)
+    net = PlainTSN(cfg["num_class"], arch=cfg["arch"],
+                   in_channels=cfg["in_channels"])
+    net.load_state_dict(sd)
+    net = net.to(dev).eval()
+    with torch.no_grad():
+        logits, calls = epilogue_calls(
+            lambda: net(ref.oversample(frames, cfg)))
+    torch.cuda.synchronize()
+    launches = epi.bn_epilogue.launches
+    print(f"  ResNet-152 eval forward of {EPI_CLIPS} clips at "
+          f"{cfg['input_size']}²: {launches} launches")
+    check(launches == len(calls) == 151,
+          f"a ResNet-152 forward made {launches} epilogue launches, not 151")
+    check(logits.shape == (EPI_CLIPS, cfg["num_class"])
+          and bool(torch.isfinite(logits).all()), "the forward's logits")
+
+    worst, exact, cases = epilogue_check(torch, calls)
+    widths = sorted({shape[1] for shape, *_ in calls})
+    print(f"  {cases} cases (each distinct shape and residual mode of the "
+          f"forward, channels {widths}, x ReLU on/off): max |kernel - "
+          f"plain| / max |plain| = {worst:.3g}, bit-equal in {exact} of "
+          f"{cases}")
+    check(worst <= EPI_RTOL, f"epilogue off its plain version by {worst}")
+
+    nbytes = sum(math.prod(shape) * 4 * (3 if mode else 2)
+                 for shape, _, mode, _, _ in calls)
+    bufs = {shape: [torch.randn(shape, generator=gen, device=dev).contiguous(
+        memory_format=torch.channels_last) for _ in range(2)]
+        for shape, *_ in calls}
+
+    def forward_launches(fn):
+        for shape, bn, mode, residual_bn, relu in calls:
+            y, r = bufs[shape]
+            fn(y, bn, r if mode else None, residual_bn, relu)
+
+    with torch.no_grad():
+        ms = device_ms_per_call(lambda: forward_launches(epi.bn_epilogue),
+                                5, torch)
+        plain_ms = device_ms_per_call(
+            lambda: forward_launches(epi.bn_epilogue_ref), 2, torch)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"  epilogue a forward ({len(calls)} launches, {nbytes / 1e9:.3f} "
+          f"GB): {ms:.3f} ms on the card, bound {bound_ms:.3f} ms (bytes) = "
+          f"{100 * bound_ms / ms:.1f}%; plain version {plain_ms:.3f} ms; "
+          f"{smi}")
+    del bufs, net, sd, logits, calls
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_rel_err": worst,
+            "bit_equal": f"{exact}/{cases}", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bytes": nbytes}
+
+
 def main():
     import torch
 
@@ -3447,6 +3609,7 @@ def main():
     parallel = in_workdir(parallel_phase, torch, bt, dev, gops, smi)
     pipeline = in_workdir(pipeline_phase, torch, bt, dev, gops, smi)
     utils = in_workdir(utils_phase, torch, bt, dev, gops, smi)
+    epilogue = in_workdir(epilogue_phase, torch, bt, dev, gops, smi)
 
     # 16. videos --------------------------------------------------------------
     phase("videos")
@@ -3518,6 +3681,18 @@ def main():
         "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "bn_epilogue",
+        "route": "cuda",
+        "source": "dmcnet_tpu_torch/ops/csrc/bn_epilogue.cu",
+        "replaces": None,
+        "launches": epilogue["launches"],
+        "max_rel_err": epilogue["max_rel_err"],
+        "ms": epilogue["ms"],
+        "plain_ms": epilogue["plain_ms"],
+        "bound_ms": epilogue["bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))

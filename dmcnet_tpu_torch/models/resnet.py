@@ -10,16 +10,39 @@ torchvision and the reference checkpoints (`conv1`, `bn1`,
 `layer1.0.conv1`, `layer1.0.conv3`, `layer2.0.downsample.0`, `fc`).
 Stride-2 convs and the 3x3/2 max pool use torch's floor-mode geometry, as
 the JAX package reproduces it.  Each stage runs inside the span
-`resnet.layer<k>` (`utils.profiling.span`, with its stream time and its
-`blocks`).
+`resnet.layer<k>` (`utils.profiling.span`, with its stream time, its
+`blocks` and how many of them were `fused`).
+
+In inference (eval mode, grad off, float32 weights, no autocast) a
+bottleneck ResNet runs channels_last, and each of its convolutions is
+followed by one pass of `ops.bn_epilogue` in place of the BatchNorm,
+residual add and ReLU that follow it: the same modules and weights, each
+BatchNorm a per-channel scale and shift from its running statistics, in
+fewer passes over device memory.  Training, grad-enabled, autocast and
+non-float32 forwards and BasicBlock ResNets run the modules one by one.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from dmcnet_tpu_torch.models.layers import batch_norm
+from dmcnet_tpu_torch.ops.bn_epilogue import bn_epilogue
 from dmcnet_tpu_torch.utils.profiling import span
+
+
+def fuses(block):
+    """True when `block` (a Bottleneck) runs its BatchNorms, add and ReLUs
+    as epilogue passes: in eval mode with grad off, its weights float32
+    on the CPU or a card and autocast off there, so that each
+    convolution's output is the float32 tensor the epilogue takes."""
+    if not isinstance(block, Bottleneck) or block.training \
+            or torch.is_grad_enabled():
+        return False
+    w = block.conv1.weight
+    return w.dtype == torch.float32 and w.device.type in ("cpu", "cuda") \
+        and not torch.is_autocast_enabled(w.device.type)
 
 
 class BasicBlock(nn.Module):
@@ -70,11 +93,24 @@ class Bottleneck(nn.Module):
                 batch_norm(c_out))
 
     def forward(self, x):
+        if fuses(self):
+            return self._fused(x)
         identity = x if self.downsample is None else self.downsample(x)
         y = self.relu(self.bn1(self.conv1(x)))
         y = self.relu(self.bn2(self.conv2(y)))
         y = self.bn3(self.conv3(y))
         return self.relu(y + identity)
+
+    def _fused(self, x):
+        """The inference forward: each convolution then one epilogue pass,
+        the downsample's BatchNorm folded into the last one's."""
+        x = x.contiguous(memory_format=torch.channels_last)
+        y = bn_epilogue(self.conv1(x), self.bn1)
+        y = bn_epilogue(self.conv2(y), self.bn2)
+        if self.downsample is None:
+            return bn_epilogue(self.conv3(y), self.bn3, x)
+        conv, bn = self.downsample
+        return bn_epilogue(self.conv3(y), self.bn3, conv(x), bn)
 
 
 class ResNet(nn.Module):
@@ -107,11 +143,15 @@ class ResNet(nn.Module):
                                         nonlinearity="relu")
 
     def forward(self, x):
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        if fuses(self.layer1[0]):
+            x = x.contiguous(memory_format=torch.channels_last)
+            x = self.maxpool(bn_epilogue(self.conv1(x), self.bn1))
+        else:
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
         for stage in range(self.n_stages):
             layer = getattr(self, f"layer{stage + 1}")
             with span(f"resnet.layer{stage + 1}", device=x.device,
-                      blocks=len(layer)):
+                      blocks=len(layer), fused=sum(map(fuses, layer))):
                 x = layer(x)
         return self.fc(self.avgpool(x).flatten(1))
 

@@ -328,7 +328,8 @@ def test_plain_tsn_scoring_traced_is_bit_identical():
     """`cli.test.score_video` on a ResNet-152 `PlainTSN`, one video of 1
     segment x 10 crops: nothing logged without a profiler; under one the
     canvas's copy (`bytes`, its u8 size), then the backbone (`clips`)
-    around the ResNet's four stages (`blocks` 3, 8, 36, 3)."""
+    around the ResNet's four stages (`blocks` 3, 8, 36, 3, each block
+    `fused`: eval mode, grad off)."""
     from dmcnet_tpu_torch.cli.test import score_video
     from dmcnet_tpu_torch.data import transforms as T
     from dmcnet_tpu_torch.models.tsn import PlainTSN
@@ -359,7 +360,7 @@ def test_plain_tsn_scoring_traced_is_bit_identical():
         + RESNET
     assert log[0]["counts"] == {"bytes": frames.nbytes}
     assert log[1]["counts"] == {"clips": 10 * s}
-    assert [e["counts"] for e in log[2:]] == [{"blocks": n}
+    assert [e["counts"] for e in log[2:]] == [{"blocks": n, "fused": n}
                                               for n in (3, 8, 36, 3)]
     assert log[0]["parent"] is log[1]["parent"] is None
     assert all(e["parent"] == log[1]["index"] for e in log[2:])
